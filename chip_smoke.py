@@ -6,7 +6,9 @@ Phases, each reported on its own lines; any failure raises and exits
 non-zero before the result line:
 
 1. device and build: card name, ``nvidia-smi`` name and power limit,
-   whether PyYAML imports, the blend kernel's build time;
+   whether PyYAML and tensorboardX import; the three kernels (blend,
+   dropout, dW) built from source in parallel, one ``nvcc`` each, with
+   their build times and ptxas registers and spills;
 2. blend kernel vs its plain PyTorch version on the card, at the slice's
    shapes (10 contributions of (256, 256, 32, 4) f32 into a (384, 384, 64, 4)
    accumulator, starts overlapping on every axis) and at a ragged geometry
@@ -21,7 +23,26 @@ non-zero before the result line:
    threshold 50) with random weights from a seeded generator; the blend
    kernel's launches must equal the number of patch batches, outputs must
    exist, labels lie in {0, 1, 2}, probability maps are finite and agree
-   with the plain slice-add blend (``BlendImpl: xla``) on the card.
+   with the plain slice-add blend (``BlendImpl: xla``) on the card;
+5. dropout kernel vs its plain version at (96, 16, 64, 64, 64) bf16
+   channels-last, the main path's largest dropout, for ``pallas`` and
+   ``bits8`` at the config's rate 0.01: bitwise equal, keep fraction within
+   5 sigma, backward mask = forward mask for a gradient that is not
+   channels-last; kernel, plain and ``F.dropout`` times;
+6. dW kernel vs its plain version at the main path's shapes, batch 96 bf16
+   (16->16 and 32->16 5^3 at 64^3, 128->128 at 8^3, 256->256 at 4^3, the
+   1^3 16->3 output conv): max |diff| <= DW_RTOL * max |dW|; kernel, plain
+   and cuDNN weight-gradient times;
+7. the training main path: ``python -m vnet_tpu_torch -p train``'s
+   ``main`` on ``cuda`` at ``configs/config.json``'s network (16 channels,
+   4 levels, PReLU, batch norm, dropout 0.01, weighted Sorensen, Adam,
+   bf16) with patch 64^3, ``DropoutImpl``/``DwImpl`` ``pallas``, batch 4,
+   4 steps, on 8 synthetic 96x96x80 cases; finite losses, launch counts of
+   the module tree (21 dropout layers forward and backward, 22 stride-1
+   convolutions, per step), a checkpoint that restores;
+8. the training step at ``bench.py``'s flagship workload (batch 96, 64^3,
+   random data) through ``make_train_step``: median step time, patches/s
+   and peak memory, with the kernels and with ``xla`` dropout and dW.
 
 The last lines are a JSON object describing each kernel, the card's name
 and power limit, and the result line
@@ -38,12 +59,15 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EVAL_CONFIG = os.path.join(ROOT, "configs", "config_eval_gaussian.json")
+TRAIN_CONFIG = os.path.join(ROOT, "configs", "config.json")
+KERNELS = ("blend_accumulate", "dropout", "dw_conv")
 SLICE_VOLUME = (384, 384, 64)
 SLICE_PATCH = (256, 256, 32)
 SLICE_STRIDE = (128, 128, 16)
@@ -52,6 +76,16 @@ SEED = 0
 # phase 3: f32 on the card (TF32 off) vs f32 on the CPU differ only by
 # summation order; allowed max |diff| relative to the largest CPU logit
 FORWARD_RTOL = 1e-3
+# phase 6: float32 sums of bf16 products (exact in float32) over up to 25M
+# positions, in another order than the plain version's; allowed max |diff|
+# relative to max |dW|
+DW_RTOL = 1e-4
+# H100 SXM datasheet peaks: HBM bytes/s, bf16 dense FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+TRAIN_PATCH = (64, 64, 64)
+TRAIN_CASE = (96, 96, 80)
+FLAGSHIP_BATCH = 96
 
 
 def check(cond: bool, msg: str) -> None:
@@ -63,9 +97,11 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def time_ms(fn, reps: int = 25) -> float:
-    """Median CUDA-event time of ``fn()`` in ms, after one warm-up call."""
-    fn()
+def time_ms(fn, reps: int = 25, warmup: bool = True) -> float:
+    """Median CUDA-event time of ``fn()`` in ms, after one warm-up call
+    unless the caller has just made one."""
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -86,24 +122,29 @@ def phase_device_and_build():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    try:
-        import yaml  # noqa: F401  (the pipeline YAML loader needs it)
-        has_yaml = True
-    except ImportError:
-        has_yaml = False
+    has = {}
+    for module in ("yaml", "tensorboardX"):
+        try:
+            __import__(module)
+            has[module] = True
+        except ImportError:
+            has[module] = False
     say(f"[1] device: {name}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}")
     say(f"[1] nvidia-smi: {smi}")
-    say(f"[1] yaml imports: {has_yaml}")
+    say(f"[1] yaml imports: {has['yaml']}; tensorboardX imports: "
+        f"{has['tensorboardX']} (the port logs scalars as JSON lines)")
     t0 = time.perf_counter()
-    built = build.load("blend_accumulate")
-    wall = time.perf_counter() - t0
-    say(f"[1] blend kernel build: compiled={built.compiled} nvcc "
-        f"{built.seconds:.2f} s, load {wall:.2f} s ({built.path.name})")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"[1] ptxas: {line.strip()}")
-    check(has_yaml, "PyYAML is needed to read the pipeline YAML")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
+        built = list(pool.map(build.load, KERNELS))
+    say(f"[1] kernel builds in parallel: {time.perf_counter() - t0:.2f} s")
+    for kernel, b in zip(KERNELS, built):
+        say(f"[1] {kernel} build: compiled={b.compiled} nvcc "
+            f"{b.seconds:.2f} s ({b.path.name})")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"[1] {kernel} ptxas: {line.strip()}")
+    check(has["yaml"], "PyYAML is needed to read the pipeline YAML")
     return name, smi
 
 
@@ -127,11 +168,14 @@ def _kernel_vs_plain(acc_shape, patch, starts, gen, label):
     plain_ms = time_ms(lambda: blend_accumulate_plain(acc_p, contrib, st))
     say(f"[2] {label}: acc {tuple(acc_shape)} contrib {tuple(contrib.shape)} "
         f"starts {starts.tolist()}")
+    # bytes: acc read and written once, every contribution read once
+    bound_ms = (2 * acc0.nbytes + contrib.nbytes) / HBM_BYTES_PER_S * 1e3
     say(f"[2] {label}: bitwise_equal={equal} max_abs_err={err:.3e} "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms (median of 25)")
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms (median of 25); "
+        f"byte bound {bound_ms:.4f} ms")
     check(equal, f"{label}: kernel differs from the plain version "
                  f"(max abs err {err})")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound_ms
 
 
 def phase_kernel_vs_plain(card):
@@ -140,14 +184,15 @@ def phase_kernel_vs_plain(card):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     grid = build_patch_grid(SLICE_VOLUME, SLICE_PATCH, SLICE_STRIDE)
     check(len(grid) == 12, f"slice grid has {len(grid)} patches, expected 12")
-    err, ms, plain_ms = _kernel_vs_plain(
+    err, ms, plain_ms, bound_ms = _kernel_vs_plain(
         SLICE_VOLUME + (4,), SLICE_PATCH, grid[:SLICE_BATCH], gen,
         f"slice shapes on {card}")
     ragged_vol, ragged_patch = (97, 83, 45), (40, 33, 17)
     ragged = build_patch_grid(ragged_vol, ragged_patch, (23, 19, 11))
-    err_r, _, _ = _kernel_vs_plain(ragged_vol + (3,), ragged_patch,
-                                   ragged[-7:], gen, "ragged geometry")
-    return max(err, err_r), ms, plain_ms
+    err_r, _, _, _ = _kernel_vs_plain(ragged_vol + (3,), ragged_patch,
+                                      ragged[-7:], gen, "ragged geometry")
+    return dict(max_abs_err=max(err, err_r), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
 
 
 def phase_forward_card_vs_cpu():
@@ -156,7 +201,7 @@ def phase_forward_card_vs_cpu():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
-    net = build_network("VNet", num_classes=3, norm="batch",
+    net = build_network("VNet", num_classes=3, norm="batch", device="cpu",
                         generator=gen)  # full width: 16 ch, 4 levels
     x = torch.from_numpy(np.random.default_rng(SEED).normal(
         size=(1,) + SLICE_PATCH + (1,)).astype(np.float32))
@@ -207,7 +252,6 @@ def phase_main_path(tmp):
     from vnet_tpu_torch.infer.evaluator import Evaluator
     from vnet_tpu_torch.io import MedicalImage, read_image, write_image
     from vnet_tpu_torch.models import build_network
-    from vnet_tpu_torch.ops.blend import blend_accumulate_patches
     from vnet_tpu_torch.train import checkpoints
 
     cfg_path, cfg = _write_config(tmp)
@@ -226,17 +270,19 @@ def phase_main_path(tmp):
         num_channels=net_cfg["NumChannel"], num_levels=net_cfg["NumLevels"],
         num_convolutions=net_cfg["NumConvolutions"],
         bottom_convolutions=net_cfg["BottomConvolutions"],
-        norm=net_cfg["Norm"], generator=torch.Generator().manual_seed(SEED))
+        norm=net_cfg["Norm"], device="cpu",
+        generator=torch.Generator().manual_seed(SEED))
     checkpoints.save(ts["CheckpointDir"], net.state_dict(), 0)
     n_batches_per_case = -(-12 // SLICE_BATCH)
 
-    blend_accumulate_patches.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     results = main(["-p", "evaluate", "--config_json", cfg_path,
                     "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = blend_accumulate_patches.launches
+    counts = read_counts()
+    launches = counts["blend_accumulate"]
 
     say(f"[4] main path: {len(results)} cases in {wall:.2f} s "
         f"({wall / 2:.2f} s per case incl. model build, checkpoint load and "
@@ -245,6 +291,8 @@ def phase_main_path(tmp):
     check(len(results) == 2, f"{len(results)} labels written, expected 2")
     check(launches == 2 * n_batches_per_case,
           "blend kernel launches != patch batches")
+    check(counts["dropout"] == counts["dw_conv"] == 0,
+          f"evaluation launched training kernels: {counts}")
     for case_dir in cases:
         label = read_image(os.path.join(case_dir, "label_tf.nii.gz"))
         check(label.GetSize() == SLICE_VOLUME, f"label {label.GetSize()}")
@@ -283,6 +331,286 @@ def phase_main_path(tmp):
     return launches, wall / 2, steady
 
 
+def _counted():
+    from vnet_tpu_torch.ops.blend import blend_accumulate_patches
+    from vnet_tpu_torch.ops.dropout import dropout_apply
+    from vnet_tpu_torch.ops.dw_conv import dw_conv
+
+    return {"blend_accumulate": blend_accumulate_patches,
+            "dropout": dropout_apply, "dw_conv": dw_conv}
+
+
+def reset_counts() -> None:
+    for wrapper in _counted().values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in _counted().items()}
+
+
+def phase_dropout():
+    """Dropout kernel vs plain at the main path's largest dropout."""
+    import torch.nn.functional as F
+
+    from vnet_tpu_torch.ops.dropout import (dropout, dropout_apply,
+                                            dropout_params, dropout_plain)
+
+    rate, seed, stream = 0.01, 20261016, 3
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((FLAGSHIP_BATCH, 16) + TRAIN_PATCH, generator=gen,
+                    device="cuda").to(torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last_3d)
+    nonzero = x != 0
+    n = int(nonzero.sum())
+    bound_ms = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3  # read x, write out
+    result = {}
+    for impl in ("pallas", "bits8"):
+        thr, scale = dropout_params(rate, impl)
+        out_k = dropout_apply(x, seed, stream, thr, scale)
+        out_p = dropout_plain(x, seed, stream, thr, scale)
+        torch.cuda.synchronize()
+        equal = torch.equal(out_k, out_p)
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        p = thr / 2.0 ** 32
+        kept = int(((out_k != 0) & nonzero).sum())
+        sigmas = abs(kept - n * p) / (n * p * (1 - p)) ** 0.5
+        del out_p
+        xr = x.detach().requires_grad_()
+        y = dropout(xr, seed, stream, rate, impl)
+        g = torch.ones(y.shape, dtype=y.dtype, device="cuda")  # not CL
+        (dx,) = torch.autograd.grad(y, xr, g)
+        same_mask = bool((((dx != 0) == (y != 0)) | ~nonzero).all())
+        del xr, y, g, dx
+        ms = time_ms(lambda: dropout_apply(x, seed, stream, thr, scale))
+        plain_ms = time_ms(lambda: dropout_plain(x, seed, stream, thr,
+                                                 scale), reps=3)
+        lib_ms = time_ms(lambda: F.dropout(x, rate, training=True))
+        say(f"[5] dropout {impl} {tuple(x.shape)} bf16 channels-last: "
+            f"bitwise_equal={equal} keep {kept / n:.6f} (p {p:.6f}, "
+            f"{sigmas:.2f} sigma) backward_mask_equal={same_mask}; kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms F.dropout {lib_ms:.4f} ms "
+            f"byte bound {bound_ms:.4f} ms")
+        check(equal, f"dropout {impl}: kernel differs from the plain version")
+        check(sigmas < 5.0, f"dropout {impl}: keep fraction off by "
+                            f"{sigmas:.1f} sigma")
+        check(same_mask, f"dropout {impl}: backward mask != forward mask")
+        result[impl] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by="bytes",
+                            library_ms=lib_ms)
+    return result["pallas"]
+
+
+DW_SHAPES = (  # (Ci, Co, side, k) at batch 96: the main path's stride-1 convs
+    (16, 16, 64, 5), (32, 16, 64, 5), (128, 128, 8, 5), (256, 256, 4, 5),
+    (16, 3, 64, 1))
+
+
+def phase_dw():
+    """dW kernel vs plain at the main path's shapes; the kernels line
+    reports the sums over the five shapes."""
+    from vnet_tpu_torch.ops.dw_conv import dw_conv, dw_conv_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cl = torch.channels_last_3d
+    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 library_ms=0.0, flops=0.0, bytes=0.0)
+    for ci, co, side, k in DW_SHAPES:
+        vol = (side,) * 3
+        x = torch.randn((FLAGSHIP_BATCH, ci) + vol, generator=gen,
+                        device="cuda").to(torch.bfloat16).contiguous(
+                            memory_format=cl)
+        g = torch.randn((FLAGSHIP_BATCH, co) + vol, generator=gen,
+                        device="cuda").to(torch.bfloat16).contiguous(
+                            memory_format=cl)
+        ks = (k,) * 3
+        out_k = dw_conv(x, g, ks)
+        out_p = dw_conv_plain(x, g, ks)
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        scale = out_p.abs().max().item()
+        del out_k, out_p
+        w = torch.empty((co, ci) + ks, dtype=torch.bfloat16, device="cuda")
+        pad = ((k - 1) // 2,) * 3
+        ms = time_ms(lambda: dw_conv(x, g, ks), reps=5)
+        plain_ms = time_ms(lambda: dw_conv_plain(x, g, ks), reps=1,
+                           warmup=False)
+        lib_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
+            g, x, w, None, (1, 1, 1), pad, (1, 1, 1), False, (0, 0, 0), 1,
+            (False, True, False)), reps=5)
+        flops = 2.0 * (x.numel() // ci) * k ** 3 * ci * co
+        nbytes = x.nbytes + g.nbytes + co * ci * k ** 3 * 4
+        bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        say(f"[6] dW {ci}->{co} k{k} at {side}^3 batch {FLAGSHIP_BATCH} "
+            f"bf16: max|diff| {err:.3e} max|dW| {scale:.3e} (tolerance "
+            f"{DW_RTOL:g} x max|dW|); kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
+            f"cuDNN {lib_ms:.3f} ms bound {bound_ms:.4f} ms "
+            f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
+        check(err <= DW_RTOL * scale,
+              f"dW {ci}->{co} k{k}: kernel differs from the plain version")
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound_ms),
+                       ("flops", flops), ("bytes", nbytes)):
+            total[key] += v
+        del x, g, w
+    bound_by = ("operations" if total["flops"] / BF16_FLOPS
+                > total["bytes"] / HBM_BYTES_PER_S else "bytes")
+    say(f"[6] dW over the five shapes: kernel {total['ms']:.3f} ms, cuDNN "
+        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms "
+        f"({bound_by})")
+    del total["flops"], total["bytes"]
+    return dict(total, bound_by=bound_by)
+
+
+def _train_case(rng):
+    """A 96x96x80 volume at 0.75 mm: noise around 100 (sigma 20), a bright
+    sphere labelled 1 (radius 14) holding a brighter core labelled 2
+    (radius 6)."""
+    img = rng.normal(100.0, 20.0, size=TRAIN_CASE).astype(np.float32)
+    label = np.zeros(TRAIN_CASE, np.uint8)
+    x, y, z = np.ogrid[tuple(slice(0, s) for s in TRAIN_CASE)]
+    cx, cy, cz = (int(rng.integers(20, s - 20)) for s in TRAIN_CASE)
+    d2 = (x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2
+    img[d2 <= 196] += 40.0
+    label[d2 <= 196] = 1
+    img[d2 <= 36] += 40.0
+    label[d2 <= 36] = 2
+    return img, label
+
+
+def _write_train_config(tmp):
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        cfg = json.load(f)
+    ts = cfg["TrainingSetting"]
+    ts["Data"]["TrainingDataDirectory"] = os.path.join(tmp, "training")
+    ts["Data"]["TestingDataDirectory"] = os.path.join(tmp, "training")
+    ts.update(PatchShape=list(TRAIN_PATCH), BatchSize=4, MaxIterations=4,
+              LogInterval=2, Testing=False, Restore=False,
+              LogDir=os.path.join(tmp, "log"),
+              CheckpointDir=os.path.join(tmp, "ckpt"),
+              Pipeline=os.path.join(tmp, "pipeline.yaml"))
+    ts["Networks"].update(DropoutImpl="pallas", DwImpl="pallas")
+    crop = {"output_size": list(TRAIN_PATCH)}
+    pipeline = {"preprocess": {"train": {"3D": [
+        {"name": "StatisticalNormalization", "variables": {"sigma": 2.5}},
+        {"name": "Resample", "variables": {"voxel_size": [0.75] * 3}},
+        {"name": "Padding", "variables": crop},
+        {"name": "ConfidenceCrop2",
+         "variables": dict(crop, rand_range=16, probability=0.8)},
+        {"name": "RandomNoise"}]}}}
+    with open(ts["Pipeline"], "w") as f:
+        yaml.safe_dump(pipeline, f)
+    path = os.path.join(tmp, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path, cfg
+
+
+def phase_train(tmp):
+    """The training main path through the CLI's ``main``."""
+    from vnet_tpu_torch.__main__ import main
+    from vnet_tpu_torch.config import load_config
+    from vnet_tpu_torch.io import MedicalImage, write_image
+    from vnet_tpu_torch.train import Trainer, checkpoints
+
+    cfg_path, cfg = _write_train_config(tmp)
+    ts = cfg["TrainingSetting"]
+    rng = np.random.default_rng(SEED)
+    for i in range(8):
+        img, label = _train_case(rng)
+        case_dir = os.path.join(tmp, "training", f"case_{i}")
+        os.makedirs(case_dir)
+        write_image(MedicalImage(img, (0.75,) * 3),
+                    os.path.join(case_dir, "image.nii"))
+        write_image(MedicalImage(label, (0.75,) * 3),
+                    os.path.join(case_dir, "label.nii"))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    state = main(["-p", "train", "--config_json", cfg_path,
+                  "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+
+    steps = ts["MaxIterations"]
+    n_dropout = len(state.network.dropouts)
+    n_dw = sum(1 for m in state.network.modules()
+               if getattr(m, "dw_impl", None) == "pallas"
+               and m.strides == (1, 1, 1))
+    with open(os.path.join(ts["LogDir"], "train", "scalars.jsonl")) as f:
+        losses = [json.loads(line)["value"] for line in f
+                  if '"loss/0.total_loss"' in line]
+    say(f"[7] train main path: {steps} steps at batch {ts['BatchSize']}, "
+        f"patch {TRAIN_PATCH}, in {wall:.2f} s (incl. data loading, model "
+        f"build, first-call warm-up, checkpoints); losses {losses}; "
+        f"launches {counts}; module tree: {n_dropout} dropout layers, "
+        f"{n_dw} stride-1 convs")
+    check(state.step == steps, f"trained {state.step} steps, not {steps}")
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"losses {losses}")
+    check(n_dropout == 21 and n_dw == 22,
+          f"module tree: {n_dropout} dropouts, {n_dw} stride-1 convs")
+    check(counts["dropout"] == 2 * n_dropout * steps,
+          f"dropout launches {counts['dropout']} != {2 * n_dropout * steps}")
+    check(counts["dw_conv"] == n_dw * steps,
+          f"dW launches {counts['dw_conv']} != {n_dw * steps}")
+    check(counts["blend_accumulate"] == 0, "training launched the blend")
+
+    saved = checkpoints.restore_latest_state(ts["CheckpointDir"])
+    check(saved is not None and saved["step"] == steps,
+          "no checkpoint of the last step")
+    fresh = Trainer(load_config(cfg_path), device="cuda", log=False)
+    fresh.network.load_state_dict(saved["model"])
+    fresh.optimizer.load_state_dict(saved["optimizer"])
+    trained = state.network.state_dict()
+    same = all(torch.equal(v, trained[k])
+               for k, v in fresh.network.state_dict().items())
+    say(f"[7] checkpoint step {saved['step']} epoch {saved['epoch']} "
+        f"restores into a fresh trainer: weights equal={same}")
+    check(same, "restored weights differ from the trained ones")
+    return counts
+
+
+def _flagship_steps(impl, batch):
+    from vnet_tpu_torch.tools.profile_step import flagship_step, timed_steps
+
+    state, step, images, labels = flagship_step(impl, batch, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = timed_steps(state, step, images, labels, 4)
+    # the first step is warm-up
+    return (statistics.median(times[1:]), torch.cuda.max_memory_allocated(),
+            losses)
+
+
+def phase_flagship():
+    """``bench.py``'s flagship step (batch 96, 64^3), kernels vs library."""
+    result = {}
+    for impl in ("pallas", "xla"):
+        batch = FLAGSHIP_BATCH
+        while True:
+            try:
+                ms, peak, losses = _flagship_steps(impl, batch)
+                break
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+                say(f"[8] {impl}: batch {batch} does not fit in memory")
+                check(batch > 8, "not even batch 8 fits")
+                batch //= 2
+        torch.cuda.empty_cache()
+        say(f"[8] flagship step, DropoutImpl/DwImpl {impl}: batch {batch} "
+            f"64^3 bf16: median {ms:.1f} ms per step, "
+            f"{batch / ms * 1e3:.1f} patches/s, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; losses {losses}")
+        check(all(np.isfinite(losses)), f"flagship losses {losses}")
+        result[impl] = (batch, ms)
+    return result
+
+
 def run():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -290,19 +618,34 @@ def run():
     import vnet_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     card, smi = phase_device_and_build()
-    err, ms, plain_ms = phase_kernel_vs_plain(card)
+    blend = phase_kernel_vs_plain(card)
     phase_forward_card_vs_cpu()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_")
     try:
-        launches, per_case, steady = phase_main_path(tmp)
+        launches, _, _ = phase_main_path(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    say(json.dumps({"kernels": [{
-        "name": "blend_accumulate_patches", "route": "cuda",
-        "source": "vnet_tpu_torch/csrc/blend_accumulate.cu",
-        "replaces": "vnet_tpu/ops/pallas/fused.py:220",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+    drop = phase_dropout()
+    dw = phase_dw()
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_train_")
+    try:
+        train_counts = phase_train(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_flagship()
+    say(json.dumps({"kernels": [
+        dict(name="blend_accumulate_patches", route="cuda",
+             source="vnet_tpu_torch/csrc/blend_accumulate.cu",
+             replaces="vnet_tpu/ops/pallas/fused.py:220",
+             launches=launches, **blend),
+        dict(name="pallas_dropout", route="cuda",
+             source="vnet_tpu_torch/csrc/dropout.cu",
+             replaces="vnet_tpu/ops/pallas/dropout.py:99",
+             launches=train_counts["dropout"], **drop),
+        dict(name="dw_conv_pallas", route="cuda",
+             source="vnet_tpu_torch/csrc/dw_conv.cu",
+             replaces="vnet_tpu/ops/pallas/dw_conv.py:209",
+             launches=train_counts["dw_conv"], **dw)]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,15 +22,16 @@ import torch
 import yaml
 
 from fixtures import make_dataset_dir
-from vnet_tpu.config import load_config
+from vnet_tpu.config import load_config as jax_load_config
 from vnet_tpu.infer import Evaluator as JaxEvaluator
 from vnet_tpu.infer import postprocess as jpost
-from vnet_tpu.io import MedicalImage, read_image
 from vnet_tpu.models import build_network as jax_build_network
 from vnet_tpu_torch.__main__ import main
+from vnet_tpu_torch.config import load_config
 from vnet_tpu_torch.convert import flax_to_state_dict
 from vnet_tpu_torch.infer import postprocess as tpost
 from vnet_tpu_torch.infer.evaluator import Evaluator
+from vnet_tpu_torch.io import MedicalImage, read_image
 from vnet_tpu_torch.models import build_network
 from vnet_tpu_torch.train import checkpoints
 
@@ -42,7 +43,7 @@ NET = {"Name": "VNet", "NumChannel": 4, "NumLevels": 2,
 
 
 def _write_config(tmp_path, norm, eval_norm="network", label_mode="argmax",
-                  mask_probs=False, blend="auto"):
+                  mask_probs=False, blend="auto", attention=False):
     pipeline = {"preprocess": {"evaluate": {"3D": [
         {"name": "ManualNormalization",
          "variables": {"windowMin": 0, "windowMax": 200}},
@@ -53,7 +54,8 @@ def _write_config(tmp_path, norm, eval_norm="network", label_mode="argmax",
         "TrainingSetting": {
             "SegmentationClasses": [0, 1, 2], "PatchShape": list(PATCH),
             "CheckpointDir": str(tmp_path / "ckpt"), "Pipeline": str(ppath),
-            "Precision": "float32", "Networks": dict(NET, Norm=norm)},
+            "Precision": "float32",
+            "Networks": dict(NET, Norm=norm, Attention=attention)},
         "EvaluationSetting": {
             "Data": {"EvaluateDataDirectory": str(tmp_path / "evaluate"),
                      "ImageFilenames": ["image.nii"],
@@ -88,13 +90,14 @@ def test_evaluator_matches_jax(norm, eval_norm, label_mode, mask_probs,
     rng = np.random.default_rng(7)
     make_dataset_dir(str(tmp_path), "evaluate", num_cases=1, rng=rng)
     case = str(tmp_path / "evaluate" / "case_0")
-    cfg = load_config(_write_config(tmp_path, norm, eval_norm, label_mode,
-                                    mask_probs))
+    cfg_path = _write_config(tmp_path, norm, eval_norm, label_mode,
+                             mask_probs)
+    cfg = load_config(cfg_path)
     variables = _weights(norm, rng)
 
     dev0 = jax.devices()[0]
     monkeypatch.setattr(jax, "devices", lambda *a, **k: [dev0])
-    jev = JaxEvaluator(cfg, state=types.SimpleNamespace(
+    jev = JaxEvaluator(jax_load_config(cfg_path), state=types.SimpleNamespace(
         params=variables["params"], batch_stats=variables["batch_stats"]))
     assert jev.engine.blend_impl == "pallas"
     ref_label, ref_probs = jev.evaluate_case(case)
@@ -117,6 +120,7 @@ def test_cli_evaluate_on_cpu_writes_outputs(tmp_path):
     cfg_path = _write_config(tmp_path, "batch")
     net = build_network("VNet", num_classes=3, num_channels=4, num_levels=2,
                         num_convolutions=(1, 2), bottom_convolutions=1,
+                        device="cpu",
                         generator=torch.Generator().manual_seed(0))
     checkpoints.save(str(tmp_path / "ckpt"), net.state_dict(), 5)
     results = main(["-p", "evaluate", "--config_json", cfg_path,
@@ -134,9 +138,11 @@ def test_cli_evaluate_on_cpu_writes_outputs(tmp_path):
 
 
 def test_cli_train_is_not_ported(tmp_path):
+    """Training is ported for the V-Net; attention networks still raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["-p", "train", "--config_json",
-              _write_config(tmp_path, "batch")])
+              _write_config(tmp_path, "batch", attention=True),
+              "--device", "cpu"])
 
 
 def test_cuda_device_without_cuda_raises(tmp_path):
@@ -151,14 +157,14 @@ def test_eval_norm_without_batch_norm_warns(tmp_path):
     cfg = load_config(_write_config(tmp_path, "group", eval_norm="ema"))
     net = build_network("VNet", num_classes=3, num_channels=4, num_levels=2,
                         num_convolutions=(1, 2), bottom_convolutions=1,
-                        norm="group")
+                        norm="group", device="cpu")
     with pytest.warns(UserWarning, match="no effect"):
         Evaluator(cfg, state_dict=net.state_dict(), device="cpu")
 
 
 def test_missing_checkpoint_raises(tmp_path):
     cfg = load_config(_write_config(tmp_path, "batch"))
-    with pytest.raises(FileNotFoundError, match="weights_"):
+    with pytest.raises(FileNotFoundError, match="ckpt_"):
         Evaluator(cfg, device="cpu")
 
 

@@ -10,6 +10,7 @@ the network's depth), at ``atol = 0.25, rtol = 0.1`` per element and a
 mean absolute error below 0.02.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,7 +113,7 @@ def _vnet_pair(norm, in_channels, rng, dtype_jax=None,
     v = random_variables(net, rng, jnp.asarray(x), train=False)
     ref = np.asarray(jax_eval_apply(net, v, jnp.asarray(x)))
     port = build_network("VNet", in_channels=in_channels, norm=norm,
-                         dtype=dtype_port, **SMALL)
+                         dtype=dtype_port, device="cpu", **SMALL)
     port.load_state_dict(flax_to_state_dict(v), strict=True)
     out = eval_apply(port, torch.from_numpy(x)).numpy()
     assert out.dtype == np.float32 and out.shape == ref.shape
@@ -139,7 +140,47 @@ def test_vnet_batch_stats_depends_on_batch(rng):
     adding a patch to the batch changes the others' logits — the reason the
     sliding window pads grids exactly as JAX does."""
     x = rng.normal(size=(2, 16, 16, 16, 1)).astype(np.float32)
-    port = build_network("VNet", norm="batch_stats", **SMALL)
+    port = build_network("VNet", norm="batch_stats", device="cpu", **SMALL)
     both = eval_apply(port, torch.from_numpy(x))
     first = eval_apply(port, torch.from_numpy(x[:1]))
     assert not torch.allclose(both[:1], first)
+
+
+def _jax_train(mod, v, x):
+    out, mutated = jax.jit(lambda vv, xx: mod.apply(
+        vv, xx, train=True, mutable=["batch_stats"]))(v, x)
+    return np.asarray(out), jax.device_get(mutated["batch_stats"])
+
+
+@pytest.mark.parametrize("kind,tiled", [("batch", False),
+                                        ("batch_stats", False),
+                                        ("batch", True)])
+def test_batch_norm_train_updates_running_averages(kind, tiled, rng):
+    """Train mode: batch statistics, and the running averages move by
+    flax's ``0.99 * running + 0.01 * batch`` with the biased variance."""
+    c_in = 1 if tiled else 8
+    x = rng.normal(1.0, 2.0, size=(2, 6, 5, 4, c_in)).astype(np.float32)
+    mod = jl.TiledInputBatchNorm(8, kind) if tiled else jl.Norm(kind)
+    v = random_variables(mod, rng, jnp.asarray(x), train=True)
+    ref, stats = _jax_train(mod, v, jnp.asarray(x))
+    port = tl.TiledInputBatchNorm(8, kind) if tiled else tl.Norm(kind, 8)
+    port.load_state_dict(flax_to_state_dict(v), strict=True)
+    port.train()
+    with torch.no_grad():
+        out = from_port(port(to_port(x)))
+    np.testing.assert_allclose(out, ref, **TOL)
+    sd = port.state_dict()
+    np.testing.assert_allclose(sd["bn.running_mean"].numpy(),
+                               stats["bn"]["mean"], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(sd["bn.running_var"].numpy(),
+                               stats["bn"]["var"], rtol=1e-6, atol=1e-7)
+
+
+def test_eval_mode_leaves_running_averages(rng):
+    port = tl.Norm("batch_stats", 8)
+    port.eval()
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    with torch.no_grad():
+        port(to_port(rng.normal(size=(2, 4, 4, 4, 8)).astype(np.float32)))
+    for k, v in port.state_dict().items():
+        assert torch.equal(v, before[k]), k

@@ -17,6 +17,12 @@ The transpose convolution needs the flip because ``lax.conv_transpose``
 does not flip its kernel while ``F.conv_transpose3d`` is the adjoint of a
 convolution; with the port's ``(in, out, ...)`` weight layout that is a
 flip plus the in/out order of a transpose weight.
+
+Gradients map like the parameters they belong to (:func:`flax_to_grads`,
+:func:`grads_to_flax`), and so do Adam's moments: optax's
+``ScaleByAdamState`` ``mu`` / ``nu`` / ``count`` are ``torch.optim.Adam``'s
+``exp_avg`` / ``exp_avg_sq`` / ``step`` (:func:`adam_state_from_optax`,
+:func:`adam_state_to_optax`), so an optimizer state carries across.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 _TO_PORT = {"kernel": "weight", "scale": "weight", "alpha": "weight",
             "bias": "bias", "mean": "running_mean", "var": "running_var"}
@@ -92,3 +99,56 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(part, {})
         node[name] = np.ascontiguousarray(arr)
     return out
+
+
+def flax_to_grads(grads: Mapping) -> Dict[str, torch.Tensor]:
+    """flax parameter-shaped tree (gradients) -> ``{port name: tensor}``."""
+    return flax_to_state_dict({"params": grads})
+
+
+def grads_to_flax(grads: Mapping[str, torch.Tensor]) -> dict:
+    """``{port parameter name: tensor}`` -> flax ``params``-shaped tree."""
+    return state_dict_to_flax(grads)["params"]
+
+
+def _adam_leaf(opt_state):
+    """optax's ``ScaleByAdamState`` inside an optimizer state (a tuple of
+    transformation states)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_leaf(part)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(optimizer: torch.optim.Optimizer,
+                          network: nn.Module, opt_state) -> None:
+    """Load an optax Adam state into ``optimizer`` (a ``torch.optim.Adam``
+    over ``network.parameters()``): ``mu`` -> ``exp_avg``, ``nu`` ->
+    ``exp_avg_sq``, ``count`` -> ``step``."""
+    adam = _adam_leaf(opt_state)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (mu, nu) in opt_state")
+    mu, nu = flax_to_grads(adam.mu), flax_to_grads(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)))
+    for name, p in network.named_parameters():
+        optimizer.state[p] = {
+            "step": step.clone(),
+            "exp_avg": mu[name].to(device=p.device, dtype=p.dtype),
+            "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype)}
+
+
+def adam_state_to_optax(optimizer: torch.optim.Optimizer,
+                        network: nn.Module) -> dict:
+    """``{"count", "mu", "nu"}`` (numpy, flax layouts) of a
+    ``torch.optim.Adam`` over ``network.parameters()``."""
+    named = dict(network.named_parameters())
+    states = [optimizer.state[p] for p in named.values()]
+    return {"count": int(states[0]["step"]),
+            "mu": grads_to_flax({n: s["exp_avg"]
+                                 for n, s in zip(named, states)}),
+            "nu": grads_to_flax({n: s["exp_avg_sq"]
+                                 for n, s in zip(named, states)})}

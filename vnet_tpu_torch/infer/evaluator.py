@@ -2,7 +2,7 @@
 
 Counterpart of ``vnet_tpu/infer/evaluator.py`` (``evaluate_single_3d``,
 ``evaluate_case``, ``evaluate``): per case, read the image channels, apply
-the evaluation transform chain (``vnet_tpu.data``, no JAX), run the
+the evaluation transform chain (the port's ``data`` package), run the
 sliding window, argmax the blended softmax (or average the hard
 predictions, ``LabelMode: average_hard``), resample the label (nearest)
 and the probability maps (linear, softmax / weight) back onto the original
@@ -24,9 +24,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vnet_tpu.data import build_pipeline, list_cases
-
 from ..config import Config, load_pipeline
+from ..data import build_pipeline, list_cases
+from ..device import resolve_device
 from ..io import (LINEAR, NEAREST, MedicalImage, pad_to_size, read_image,
                   resample_like, write_image, zeros_like_geometry)
 from ..models import build_network, eval_apply
@@ -38,15 +38,6 @@ from .sliding_window import SlidingWindowInference
 def _stack_channels(images: List[MedicalImage]) -> np.ndarray:
     return np.stack([np.asarray(im.data, np.float32) for im in images],
                     axis=-1)
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; a CUDA device must exist — no silent CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
-                           "device; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class Evaluator:
@@ -105,7 +96,7 @@ class Evaluator:
         path = self.e.checkpoint_path or self.t.ckpt_dir
         state_dict = checkpoints.restore_latest(path)
         if state_dict is None:
-            raise FileNotFoundError(f"No port checkpoint (weights_<step>.pt) "
+            raise FileNotFoundError(f"No port checkpoint (ckpt_<step>.pt) "
                                     f"found under {path!r}")
         return state_dict
 

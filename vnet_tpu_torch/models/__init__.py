@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from ..device import resolve_device
 from .vnet import VNet
 
 _NOT_PORTED = ("VNetLegacy", "UNet", "Dense", "AttentionVNet")
@@ -29,12 +30,15 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
                   num_levels: int = 4, num_convolutions=(1, 2, 3, 3),
                   bottom_convolutions: int = 3, activation: str = None,
                   norm: str = "batch", dtype: torch.dtype = torch.float32,
-                  device="cpu",
-                  generator: Optional[torch.Generator] = None) -> VNet:
+                  device="cuda",
+                  generator: Optional[torch.Generator] = None,
+                  dropout_impl: str = "xla", dw_impl: str = "xla") -> VNet:
     """Instantiate a network from config values. Parameters are
     initialised on the CPU from ``generator`` (flax's initialisers: Xavier
     uniform convs, zero biases, PReLU 0.1, unit BN scale) and then moved to
-    ``device``."""
+    ``device`` (``cuda`` unless the caller asks for the CPU; no CUDA device
+    raises)."""
+    device = resolve_device(device)
     if name == "FCN":
         raise NotImplementedError("Network to be developed")
     if name in _NOT_PORTED:
@@ -47,7 +51,8 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
                num_convolutions=tuple(num_convolutions),
                bottom_convolutions=bottom_convolutions,
                dropout_rate=dropout_rate, activation=activation or "prelu",
-               norm=norm, dtype=dtype, generator=generator)
+               norm=norm, dtype=dtype, generator=generator,
+               dropout_impl=dropout_impl, dw_impl=dw_impl)
     return net.to(device)
 
 

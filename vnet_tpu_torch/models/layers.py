@@ -16,8 +16,14 @@ per-channel slope.
 
 Numerics follow flax: BatchNorm momentum 0.99 and epsilon 1e-3, statistics
 in float32 as ``E[x^2] - E[x]^2`` (clipped at 0), the running variance is
-the biased one. Parameters stay float32 and are cast to the compute dtype
-(``x.dtype``) at use, as the JAX modules do.
+the biased one (``F.batch_norm`` and ``nn.BatchNorm3d`` would update it with
+the unbiased one and drift from flax). Parameters stay float32 and are cast
+to the compute dtype (``x.dtype``) at use, as the JAX modules do.
+
+Training mode: batch norms update their running averages in place under
+``no_grad``; ``Dropout`` runs ``ops/dropout.py`` (the CUDA kernel on the
+card) and ``SpatialConv(dw_impl="pallas")`` takes its weight gradient from
+``ops/dw_conv.py``.
 """
 
 from __future__ import annotations
@@ -29,10 +35,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import dropout as dropout_op
+from ..ops.dw_conv import conv3d_dw
+
 NORM_KINDS = ("batch", "batch_stats", "group", "instance", "none")
 ACTIVATIONS = ("relu", "prelu", "lrelu")
 
 _EPS = 1e-3
+_MOMENTUM = 0.99
+DW_IMPLS = ("xla", "custom", "pallas")
 
 
 def _channel_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -91,8 +102,8 @@ class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the channel axis.
 
     ``use_running_average`` selects the stored statistics; otherwise the
-    statistics of the batch itself are used. This slice is inference only,
-    so the running averages are never updated here.
+    statistics of the batch itself are used and, in training mode, folded
+    into the running averages (:meth:`update_running`).
     """
 
     def __init__(self, features: int):
@@ -110,10 +121,21 @@ class BatchNorm(nn.Module):
             axes = (0,) + tuple(range(2, x.ndim))
             mean = xf.mean(axes)
             var = torch.clamp_min(xf.square().mean(axes) - mean.square(), 0.0)
+            if self.training:
+                self.update_running(mean, var)
         mul = torch.rsqrt(var + _EPS) * self.weight
         y = ((xf - _channel_view(mean, x.ndim)) * _channel_view(mul, x.ndim)
              + _channel_view(self.bias, x.ndim))
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``running = 0.99 * running + 0.01 * batch`` (flax's update, the
+        biased batch variance)."""
+        self.running_mean.copy_(_MOMENTUM * self.running_mean
+                                + (1.0 - _MOMENTUM) * mean)
+        self.running_var.copy_(_MOMENTUM * self.running_var
+                               + (1.0 - _MOMENTUM) * var)
 
 
 class GroupNorm(nn.Module):
@@ -188,7 +210,8 @@ class TiledInputBatchNorm(nn.Module):
     Every tiled channel holds the same data, so the batch statistics are
     the statistics of the single input channel: normalise it once and
     broadcast through the per-channel affine, in the compute dtype. The
-    variables sit in the ``bn`` child, as in ``Norm``.
+    variables sit in the ``bn`` child, as in ``Norm``; in training mode the
+    scalar batch statistics, broadcast to C, update its running averages.
     """
 
     def __init__(self, features: int, kind: str = "batch"):
@@ -211,6 +234,8 @@ class TiledInputBatchNorm(nn.Module):
             mu = xf.mean()
             var_s = xf.square().mean() - mu.square()
             mean, var = mu.expand(c), var_s.expand(c)
+            if self.training:
+                bn.update_running(mean, var)
         inv = torch.rsqrt(var + _EPS) * bn.weight
         shift = bn.bias - mean * inv
         return (x1 * _channel_view(inv.to(x1.dtype), x1.ndim)
@@ -221,13 +246,23 @@ class SpatialConv(nn.Module):
     """3D convolution with XLA ``"SAME"`` padding, direct mode only.
 
     ``weight`` is ``(out, in, kx, ky, kz)``; Xavier-uniform init, zero bias.
+    ``dw_impl`` selects the weight gradient of stride-1 convolutions:
+    ``"pallas"`` takes it from ``ops/dw_conv.py`` (the CUDA kernel on the
+    card), with the bias added outside that autograd Function as JAX adds
+    it; ``"xla"`` and ``"custom"`` (the same math in the JAX package,
+    ``ops/conv_vjp.py``) keep torch autograd of ``F.conv3d``.
     """
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int],
                  strides: Sequence[int] = (1, 1, 1),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dw_impl: str = "xla"):
         super().__init__()
+        if dw_impl not in DW_IMPLS:
+            raise ValueError(f"Unknown dw_impl {dw_impl!r}; expected one of "
+                             f"{DW_IMPLS}")
+        self.dw_impl = dw_impl
         self.kernel_size = tuple(int(k) for k in kernel_size)
         self.strides = tuple(int(s) for s in strides)
         self.weight = nn.Parameter(
@@ -238,6 +273,9 @@ class SpatialConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        if self.dw_impl == "pallas" and self.strides == (1, 1, 1):
+            y = conv3d_dw(x, self.weight.to(x.dtype))
+            return y + _channel_view(self.bias.to(x.dtype), y.ndim)
         pads = [same_pads(n, k, s) for n, k, s in
                 zip(x.shape[2:], self.kernel_size, self.strides)]
         if all(lo == hi for lo, hi in pads):
@@ -282,18 +320,32 @@ class SpatialConvTranspose(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout; identity in eval mode. Training-mode dropout (the Pallas
-    dropout kernel's port) is not part of this slice."""
+    """Dropout of flavour ``impl`` (``xla``, ``bits8``, ``pallas``; see
+    ``ops/dropout.py``); identity in eval mode or at rate 0.
 
-    def __init__(self, rate: float):
+    The mask is keyed by ``(seed, index)``: ``seed`` is the training step's
+    seed, set by the owning network before each forward (``VNet``), and
+    ``index`` is fixed when the network is built, so two layers never share
+    a mask and a backward pass regenerates its forward's mask.
+    """
+
+    def __init__(self, rate: float, impl: str = "xla", index: int = 0):
         super().__init__()
+        if impl not in ("xla", "bits8", "pallas"):
+            raise ValueError(f"Unknown dropout impl {impl!r}; expected "
+                             "'xla', 'bits8' or 'pallas'")
         self.rate = float(rate)
+        self.impl = impl
+        self.index = int(index)
+        self.seed: Optional[int] = None
 
     def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "training-mode dropout is not ported yet (ROADMAP.md)")
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.seed is None:
+            raise ValueError("training-mode dropout needs a step seed "
+                             "(VNet.forward(x, dropout_seed=...))")
+        return dropout_op(x, self.seed, self.index, self.rate, self.impl)
 
 
 class DownConv(nn.Module):

@@ -20,6 +20,13 @@ rewrite (``conv_impl="packed"``); the parameters are the same, so the
 direct convolutions here take the same weights. Compute runs in ``dtype``
 (bfloat16 for ``Precision: bfloat16``) with float32 parameters; logits are
 returned in float32.
+
+Training: ``dropout_impl`` selects the dropout flavour of every block's
+dropout layers and ``dw_impl`` the weight gradient of every stride-1
+convolution (the block convolutions, the multichannel input convolution and
+the 1^3 output convolution; ``"pallas"``: the CUDA kernel). The dropout
+layers are numbered in module order when the network is built, and
+``forward(x, dropout_seed=s)`` keys each layer's mask by ``(s, number)``.
 """
 
 from __future__ import annotations
@@ -41,16 +48,19 @@ class ConvBlock(nn.Module):
                  norm: str = "batch", activation: str = "prelu",
                  dropout_rate: float = 0.0,
                  in_channels: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_impl: str = "xla", dw_impl: str = "xla"):
         super().__init__()
         self.num_convolutions = num_convolutions
         for i in range(num_convolutions):
             cin = (in_channels or channels) if i == 0 else channels
             self.add_module(f"conv_{i + 1}", SpatialConv(
-                cin, channels, (5, 5, 5), generator=generator))
+                cin, channels, (5, 5, 5), generator=generator,
+                dw_impl=dw_impl))
             self.add_module(f"norm_{i + 1}", Norm(norm, channels))
             self.add_module(f"act_{i + 1}", Activation(activation, channels))
-            self.add_module(f"dropout_{i + 1}", Dropout(dropout_rate))
+            self.add_module(f"dropout_{i + 1}", Dropout(dropout_rate,
+                                                        dropout_impl))
 
     def _layer(self, x, i, residual):
         x = getattr(self, f"conv_{i + 1}")(x)
@@ -89,7 +99,8 @@ class VNet(nn.Module):
     ``forward`` takes ``(B, x, y, z, C_in)`` and returns float32 logits
     ``(B, x, y, z, num_classes)``, the JAX layout. Whether batch norms use
     running averages or batch statistics follows ``norm`` and the module's
-    train/eval mode (``Norm``).
+    train/eval mode (``Norm``). In training mode with dropout,
+    ``dropout_seed`` (an int, the step's seed) is required.
     """
 
     def __init__(self, num_classes: int, in_channels: int = 1,
@@ -98,7 +109,8 @@ class VNet(nn.Module):
                  bottom_convolutions: int = 3, dropout_rate: float = 0.01,
                  activation: str = "prelu", norm: str = "batch",
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_impl: str = "xla", dw_impl: str = "xla"):
         super().__init__()
         if num_levels != len(num_convolutions):
             raise ValueError("num_convolutions must have num_levels entries")
@@ -115,12 +127,13 @@ class VNet(nn.Module):
                                else Norm(norm, ch))
         else:
             self.input_conv = SpatialConv(in_channels, ch, (5, 5, 5),
-                                          generator=g)
+                                          generator=g, dw_impl=dw_impl)
             self.input_norm = Norm(norm, ch)
             self.input_act = Activation(activation, ch)
 
         block_kw = dict(norm=norm, activation=activation,
-                        dropout_rate=dropout_rate, generator=g)
+                        dropout_rate=dropout_rate, generator=g,
+                        dropout_impl=dropout_impl, dw_impl=dw_impl)
         for level in range(num_levels):
             self.add_module(f"encoder_level_{level + 1}", ConvBlock(
                 num_convolutions[level], ch, **block_kw))
@@ -135,10 +148,15 @@ class VNet(nn.Module):
             self.add_module(f"decoder_level_{level + 1}", DecoderConvBlock(
                 num_convolutions[level], ch, **block_kw))
         self.output_conv = SpatialConv(ch, num_classes, (1, 1, 1),
-                                       generator=g)
+                                       generator=g, dw_impl=dw_impl)
         self.output_norm = Norm(norm, num_classes)
+        self.dropouts = [m for m in self.modules() if isinstance(m, Dropout)]
+        for index, m in enumerate(self.dropouts):
+            m.index = index
 
-    def forward(self, x):
+    def forward(self, x, dropout_seed: Optional[int] = None):
+        for m in self.dropouts:
+            m.seed = dropout_seed
         # (B, x, y, z, C) -> logical (B, C, x, y, z), channels-last memory
         x = x.to(self.dtype).permute(0, 4, 1, 2, 3)
         if self.tile_input and isinstance(self.input_norm,

@@ -1,1 +1,7 @@
-"""Training side of the port; so far only weights-only checkpoints."""
+"""Training side of the port: the trainer, optimizers and checkpoints."""
+
+from .trainer import (TrainState, TrainStepOutput, Trainer, make_eval_step,
+                      make_train_step)
+
+__all__ = ["TrainState", "TrainStepOutput", "Trainer", "make_eval_step",
+           "make_train_step"]
