@@ -6,9 +6,10 @@ Phases, each reported on its own lines; any failure raises and exits
 non-zero before the result line:
 
 1. device and build: card name, ``nvidia-smi`` name and power limit,
-   whether PyYAML and tensorboardX import; the three kernels (blend,
-   dropout, dW) built from source in parallel, one ``nvcc`` each, with
-   their build times and ptxas registers and spills;
+   whether PyYAML and tensorboardX import; the six kernel sources (blend,
+   dropout, dW, BN statistics, fused tail, row blend) built from source in
+   parallel, one ``nvcc`` each, with their build times and ptxas registers
+   and spills;
 2. blend kernel vs its plain PyTorch version on the card, at the slice's
    shapes (10 contributions of (256, 256, 32, 4) f32 into a (384, 384, 64, 4)
    accumulator, starts overlapping on every axis) and at a ragged geometry
@@ -41,9 +42,34 @@ non-zero before the result line:
    the module tree (21 dropout layers forward and backward, 22 stride-1
    convolutions, per step), a checkpoint that restores;
 8. the training step at ``bench.py``'s flagship workload (batch 96, 64^3,
-   random data) through ``make_train_step``: median step time, patches/s
-   and peak memory, with the kernels and with ``xla`` dropout and dW.
+   random data; the port runs direct convolutions, ``bench.py`` the JAX
+   model's packed ones) through ``make_train_step``: median step time,
+   patches/s and peak memory, with the kernels and with ``xla`` dropout
+   and dW;
+9. BatchNorm statistics kernels (``bn_stats``, ``bn_grad_stats``) vs their
+   plain versions in bf16 at the flagship step's BN inputs, batch 96
+   ((64^3, 16), (32^3, 32), (8^3, 128), the (64^3, 3) output norm, and the
+   packed (32^3, 128) layout of groups 8), x of mean 1 and dy correlated
+   with x: per channel within ``BN_RTOL * sum|terms|``, and bitwise equal
+   from run to run (a launch count is one call of the kernels' entry point,
+   a pair of kernels: partials, then their reduction); then
+   ``ops/batchnorm.py::batch_norm_train`` forward and backward with
+   ``STATS_IMPL`` ``pallas`` vs ``xla``, and vs autograd of
+   ``models.layers.BatchNorm`` at groups 1; kernel, plain and
+   ``torch.batch_norm_stats`` / ``torch.batch_norm_backward_reduce`` times;
+10. the fused bias + PReLU + residual tail vs its plain version at
+   (96, 64, 64, 64, 16) bf16 and at a ragged, unaligned f32 shape with
+   C = 3, bias and slope in x's dtype: bitwise equal, one launch per
+   checked call; kernel and plain times;
+11. the row blend vs its plain loop over segments at the evaluation slice's
+   geometry flattened (the z-lines of the first batch of 10 patches, 655360
+   segments of 32 rows, the cosine window's z-profile) and at a ragged
+   geometry: bitwise equal, one launch per overlap level (the count and a
+   ``torch.profiler`` trace agree); the kernels' device time from the
+   trace, the host levelling, the whole call and the plain loop timed.
 
+No entry point reaches the kernels of phases 9-11 (as in the JAX package);
+their launches in the ``kernels`` line are the counts of their own phase.
 The last lines are a JSON object describing each kernel, the card's name
 and power limit, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -67,7 +93,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EVAL_CONFIG = os.path.join(ROOT, "configs", "config_eval_gaussian.json")
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "config.json")
-KERNELS = ("blend_accumulate", "dropout", "dw_conv")
+KERNELS = ("blend_accumulate", "dropout", "dw_conv", "bn_stats",
+           "bias_prelu_residual", "blend_rows")
 SLICE_VOLUME = (384, 384, 64)
 SLICE_PATCH = (256, 256, 32)
 SLICE_STRIDE = (128, 128, 16)
@@ -80,6 +107,14 @@ FORWARD_RTOL = 1e-3
 # positions, in another order than the plain version's; allowed max |diff|
 # relative to max |dW|
 DW_RTOL = 1e-4
+# phase 9: float32 sums over up to 25M rows in another order than the plain
+# version's; allowed |diff| per channel relative to the sum of |terms|
+BN_RTOL = 1e-5
+# phase 9: batch_norm_train's gradients, allowed max |diff| relative to the
+# reference's max |grad| (float32 sums of bf16 data in other orders; dx is
+# bf16, so one bf16 ulp of each element comes on top)
+BN_GRAD_RTOL = 1e-3
+BF16_ULP = 2.0 ** -7  # bf16 spacing relative to a value's binade
 # H100 SXM datasheet peaks: HBM bytes/s, bf16 dense FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -291,8 +326,8 @@ def phase_main_path(tmp):
     check(len(results) == 2, f"{len(results)} labels written, expected 2")
     check(launches == 2 * n_batches_per_case,
           "blend kernel launches != patch batches")
-    check(counts["dropout"] == counts["dw_conv"] == 0,
-          f"evaluation launched training kernels: {counts}")
+    check(launches == sum(counts.values()),
+          f"evaluation launched other kernels: {counts}")
     for case_dir in cases:
         label = read_image(os.path.join(case_dir, "label_tf.nii.gz"))
         check(label.GetSize() == SLICE_VOLUME, f"label {label.GetSize()}")
@@ -332,12 +367,18 @@ def phase_main_path(tmp):
 
 
 def _counted():
-    from vnet_tpu_torch.ops.blend import blend_accumulate_patches
+    from vnet_tpu_torch.ops.blend import (blend_accumulate_patches,
+                                          blend_accumulate_rows)
     from vnet_tpu_torch.ops.dropout import dropout_apply
     from vnet_tpu_torch.ops.dw_conv import dw_conv
+    from vnet_tpu_torch.ops.fused import (bn_grad_stats, bn_stats,
+                                          fused_bias_prelu_residual)
 
     return {"blend_accumulate": blend_accumulate_patches,
-            "dropout": dropout_apply, "dw_conv": dw_conv}
+            "dropout": dropout_apply, "dw_conv": dw_conv,
+            "bn_stats": bn_stats, "bn_grad_stats": bn_grad_stats,
+            "bias_prelu_residual": fused_bias_prelu_residual,
+            "blend_rows": blend_accumulate_rows}
 
 
 def reset_counts() -> None:
@@ -559,7 +600,8 @@ def phase_train(tmp):
           f"dropout launches {counts['dropout']} != {2 * n_dropout * steps}")
     check(counts["dw_conv"] == n_dw * steps,
           f"dW launches {counts['dw_conv']} != {n_dw * steps}")
-    check(counts["blend_accumulate"] == 0, "training launched the blend")
+    check(counts["dropout"] + counts["dw_conv"] == sum(counts.values()),
+          f"training launched other kernels: {counts}")
 
     saved = checkpoints.restore_latest_state(ts["CheckpointDir"])
     check(saved is not None and saved["step"] == steps,
@@ -611,6 +653,361 @@ def phase_flagship():
     return result
 
 
+BN_SHAPES = (  # (shape, groups): the flagship step's BN inputs at batch 96
+    ((96, 64, 64, 64, 16), 1), ((96, 32, 32, 32, 32), 1),
+    ((96, 8, 8, 8, 128), 1), ((96, 64, 64, 64, 3), 1),
+    ((96, 32, 32, 32, 128), 8))
+
+
+def _sums_close(got, ref, terms, label):
+    """Per channel ``|got - ref| <= BN_RTOL * sum|terms|``; returns the max
+    |diff| and the largest ratio of |diff| to its bound."""
+    bound = BN_RTOL * terms.abs().reshape(-1, terms.shape[-1]).sum(0)
+    diff = (got - ref).abs()
+    ratio = (diff / bound.clamp_min(1e-30)).max().item()
+    check(bool((diff <= bound).all()), f"{label}: |kernel - plain| "
+                                       f"exceeds {BN_RTOL:g} x sum|terms|")
+    return diff.max().item(), ratio
+
+
+def _bn_stats_shape(shape, gen):
+    from vnet_tpu_torch.ops.fused import (bn_grad_stats, bn_grad_stats_plain,
+                                          bn_stats, bn_stats_plain)
+
+    # nonzero means, as a BN input after a PReLU has, and dy correlated with
+    # x: no sum is near zero, so the bound is relative to each sum
+    x = (torch.randn(shape, generator=gen, device="cuda") + 1.0).to(
+        torch.bfloat16)
+    dy = (torch.randn(shape, generator=gen, device="cuda")
+          + 0.5 * x.float()).to(torch.bfloat16)
+    c = shape[-1]
+    rows = x.numel() // c
+    label = f"{tuple(shape)} bf16"
+    s_k, s_k2, s_p = bn_stats(x), bn_stats(x), bn_stats_plain(x)
+    mean = s_p[0] / rows
+    inv = torch.rsqrt(s_p[1] / rows - mean.square() + 1e-3)
+    g_k = bn_grad_stats(dy, x, mean, inv)
+    g_k2 = bn_grad_stats(dy, x, mean, inv)
+    g_p = bn_grad_stats_plain(dy, x, mean, inv)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(s_k + g_k, s_k2 + g_k2))
+    check(same, f"{label}: two kernel runs differ")
+    xf = x.float()
+    err_s = max(_sums_close(s_k[0], s_p[0], xf, f"bn_stats sum {label}"),
+                _sums_close(s_k[1], s_p[1], xf * xf,
+                            f"bn_stats sumsq {label}"))
+    del xf
+    dyf = dy.float()
+    xhat = (x.float() - mean) * inv
+    err_g = max(_sums_close(g_k[0], g_p[0], dyf,
+                            f"bn_grad_stats sum_dy {label}"),
+                _sums_close(g_k[1], g_p[1], dyf * xhat,
+                            f"bn_grad_stats sum_dy_xhat {label}"))
+    del dyf, xhat
+    # the library's single calls on the (B, C, ...) view
+    xv, dyv = x.movedim(-1, 1), dy.movedim(-1, 1)
+    ms_s = time_ms(lambda: bn_stats(x))
+    plain_s = time_ms(lambda: bn_stats_plain(x), reps=5)
+    lib_s = time_ms(lambda: torch.batch_norm_stats(xv, 1e-3), reps=5)
+    ms_g = time_ms(lambda: bn_grad_stats(dy, x, mean, inv))
+    plain_g = time_ms(lambda: bn_grad_stats_plain(dy, x, mean, inv), reps=5)
+    lib_g = time_ms(lambda: torch.batch_norm_backward_reduce(
+        dyv, xv, mean, inv, None, True, False, False), reps=5)
+    bound_s = (x.nbytes + 2 * c * 4) / HBM_BYTES_PER_S * 1e3
+    bound_g = (2 * x.nbytes + 4 * c * 4) / HBM_BYTES_PER_S * 1e3
+    say(f"[9] bn_stats {label}: bitwise reproducible={same}; max|diff| "
+        f"{err_s[0]:.3e} ({err_s[1]:.3f} of the bound {BN_RTOL:g} x "
+        f"sum|x|, sum x^2); kernel {ms_s:.4f} ms plain {plain_s:.4f} ms "
+        f"torch.batch_norm_stats {lib_s:.4f} ms byte bound {bound_s:.4f} ms")
+    say(f"[9] bn_grad_stats {label}: max|diff| {err_g[0]:.3e} "
+        f"({err_g[1]:.3f} of the bound); kernel {ms_g:.4f} ms plain "
+        f"{plain_g:.4f} ms torch.batch_norm_backward_reduce {lib_g:.4f} ms "
+        f"byte bound {bound_g:.4f} ms")
+    return ((err_s[0], ms_s, plain_s, bound_s, lib_s),
+            (err_g[0], ms_g, plain_g, bound_g, lib_g))
+
+
+def _bn_train(x, scale, bias, groups, grads_out):
+    """``batch_norm_train`` forward and backward; ``grads_out`` are the
+    gradients of (y, mean, var), None for an unused output."""
+    from vnet_tpu_torch.ops.batchnorm import batch_norm_train
+
+    leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+    outs = batch_norm_train(*leaves, 0.0, groups)
+    used = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+    grads = torch.autograd.grad([o for o, _ in used], leaves,
+                                [g for _, g in used])
+    return [o.detach() for o in outs], list(grads)
+
+
+def _bn_train_agree(got, ref, x, scale, bias, groups, label):
+    """mean and var within BN_RTOL of E|x| and E[x^2], y within one bf16
+    ulp of its terms (2^-7 (|x a| + |b|)), gradients within BN_GRAD_RTOL of
+    their max (dx, which is bf16, beyond one bf16 ulp of each element)."""
+    (y, mean, var), grads = got
+    (y_r, mean_r, var_r), grads_r = ref
+    c = scale.shape[0]
+    xg = x.float().reshape(-1, groups, c)
+    e_abs, e_sq = xg.abs().mean((0, 1)), xg.square().mean((0, 1))
+    check(bool(((mean - mean_r).abs() <= BN_RTOL * e_abs).all()),
+          f"{label}: mean differs")
+    check(bool(((var - var_r).abs() <= BN_RTOL * e_sq).all()),
+          f"{label}: var differs")
+    a = torch.rsqrt(var_r + 1e-3) * scale
+    b = (bias - mean_r * a).repeat(groups)
+    terms = (x.float() * a.repeat(groups)).abs() + b.abs()
+    y_err = ((y.float() - y_r.float()).abs() / terms.clamp_min(1e-30)).max()
+    check(y_err.item() <= BF16_ULP, f"{label}: y differs by more than one "
+                                    f"bf16 ulp of its terms")
+    g_err = []
+    for name, g, g_r in zip(("dx", "dscale", "dbias"), grads, grads_r):
+        g, g_r = g.float(), g_r.float()
+        scale_g = g_r.abs().max().item()
+        # a bf16 dx is the float32 dx rounded once: either neighbour is right
+        ulp = BF16_ULP * g_r.abs() if name == "dx" else 0.0
+        excess = ((g - g_r).abs() - ulp).clamp_min(0.0).max().item()
+        g_err.append(excess / scale_g)
+        check(excess <= BN_GRAD_RTOL * scale_g, f"{label}: {name} differs")
+    say(f"[9] batch_norm_train {label}: mean/var within {BN_RTOL:g} of "
+        f"E|x|/E[x^2]; y within {y_err.item():.3f} x 2^-7 (|x a| + |b|); "
+        f"max|diff|/max|grad| dx {g_err[0]:.2e} (beyond one bf16 ulp) "
+        f"dscale {g_err[1]:.2e} dbias {g_err[2]:.2e} (tolerance "
+        f"{BN_GRAD_RTOL:g})")
+
+
+def phase_bn():
+    """BN statistics kernels vs plain at the flagship step's BN inputs,
+    then ``batch_norm_train`` on the kernels vs ``xla`` and vs autograd of
+    ``models.layers.BatchNorm``. Returns the kernels line's entries (sums
+    over the five shapes) and the launches of the ``batch_norm_train``
+    runs."""
+    from vnet_tpu_torch.models.layers import BatchNorm
+    from vnet_tpu_torch.ops import batchnorm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    totals = [dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   library_ms=0.0) for _ in range(2)]
+    for shape, _ in BN_SHAPES:
+        for total, (err, *times) in zip(totals, _bn_stats_shape(shape, gen)):
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+            for key, v in zip(("ms", "plain_ms", "bound_ms", "library_ms"),
+                              times):
+                total[key] += v
+        torch.cuda.empty_cache()
+
+    reset_counts()
+    for shape, groups in (BN_SHAPES[0], BN_SHAPES[-1]):
+        c = shape[-1] // groups
+        x = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+        bias = torch.randn(c, generator=gen, device="cuda")
+        dmean = torch.randn(c, generator=gen, device="cuda")
+        dvar = torch.randn(c, generator=gen, device="cuda")
+        label = f"{shape} groups {groups}"
+        run = {}
+        for impl in ("pallas", "xla"):
+            batchnorm.STATS_IMPL = impl
+            run[impl] = _bn_train(x, scale, bias, groups, (dy, dmean, dvar))
+        _bn_train_agree(run["pallas"], run["xla"], x, scale, bias, groups,
+                        f"{label} pallas vs xla")
+        if groups == 1:
+            batchnorm.STATS_IMPL = "pallas"
+            got = _bn_train(x, scale, bias, 1, (dy, None, None))
+            layer = BatchNorm(c).to("cuda").train()
+            with torch.no_grad():
+                layer.weight.copy_(scale)
+                layer.bias.copy_(bias)
+            xl = x.detach().requires_grad_()
+            y_r = layer(xl.movedim(-1, 1), False).movedim(1, -1)
+            axes = tuple(range(x.dim() - 1))
+            xf = x.float()
+            mean_r = xf.mean(axes)
+            var_r = xf.square().mean(axes) - mean_r.square()
+            del xf
+            grads_r = torch.autograd.grad(y_r, (xl, layer.weight, layer.bias),
+                                          dy)
+            _bn_train_agree(got, ((y_r.detach(), mean_r, var_r),
+                                  list(grads_r)), x, scale, bias, 1,
+                            f"{label} pallas vs layers.BatchNorm autograd")
+            del got, layer, xl, y_r, grads_r
+        del run, x, dy
+        torch.cuda.empty_cache()
+    batchnorm.STATS_IMPL = "xla"
+    counts = read_counts()
+    say(f"[9] batch_norm_train launches (two shapes, pallas forward and "
+        f"backward, plus the layers.BatchNorm comparison's): {counts}")
+    check(counts["bn_stats"] == 3 and counts["bn_grad_stats"] == 3,
+          f"batch_norm_train pallas launched {counts}")
+    return ([dict(t, bound_by="bytes") for t in totals],
+            (counts["bn_stats"], counts["bn_grad_stats"]))
+
+
+def phase_tail():
+    """Fused bias + PReLU + residual tail vs its plain version."""
+    from vnet_tpu_torch.ops.fused import (fused_bias_prelu_residual,
+                                          fused_bias_prelu_residual_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ragged = (7, 45, 37, 3)
+    cases = []
+    for shape, dtype in (((FLAGSHIP_BATCH,) + TRAIN_PATCH + (16,),
+                          torch.bfloat16), (ragged, torch.float32)):
+        n = int(np.prod(shape))
+        c = shape[-1]
+        if dtype == torch.float32:  # one element off 16-byte alignment
+            x = torch.randn(n + 1, generator=gen, device="cuda")[1:].view(
+                shape)
+        else:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        res = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        bias = torch.randn(c, generator=gen, device="cuda").to(dtype)
+        alpha = (0.1 + 0.2 * torch.rand(c, generator=gen, device="cuda")).to(
+            dtype)
+        cases.append((shape, dtype, (x, res, bias, alpha)))
+    reset_counts()
+    checked = []
+    for shape, dtype, args in cases:
+        out_k = fused_bias_prelu_residual(*args)
+        out_p = fused_bias_prelu_residual_plain(*args)
+        torch.cuda.synchronize()
+        checked.append((torch.equal(out_k, out_p),
+                        (out_k.float() - out_p.float()).abs().max().item()))
+        del out_k, out_p
+    launches = read_counts()["bias_prelu_residual"]
+    check(launches == len(cases), f"fused tail launched {launches} times in "
+                                  f"{len(cases)} checked calls")
+    result = None
+    for (shape, dtype, args), (equal, err) in zip(cases, checked):
+        ms = time_ms(lambda: fused_bias_prelu_residual(*args))
+        plain_ms = time_ms(lambda: fused_bias_prelu_residual_plain(*args),
+                           reps=5)
+        bound_ms = 3 * args[0].nbytes / HBM_BYTES_PER_S * 1e3  # x, res, out
+        say(f"[10] fused_bias_prelu_residual {shape} {dtype}: "
+            f"bitwise_equal={equal} max_abs_err={err:.3e}; kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms byte bound "
+            f"{bound_ms:.4f} ms (no single PyTorch call)")
+        check(equal, f"fused tail {shape}: kernel differs from the plain "
+                     f"version")
+        if result is None:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by="bytes",
+                          library_ms=None)
+    say(f"[10] fused tail launches in the {len(cases)} checked calls: "
+        f"{launches}")
+    return result, launches
+
+
+def _slice_row_starts():
+    """Start rows of the z-lines of the evaluation slice's first patch
+    batch in the flattened (X * Y * Z, C) accumulator, in patch order."""
+    from vnet_tpu_torch.infer.sliding_window import build_patch_grid
+
+    grid = build_patch_grid(SLICE_VOLUME, SLICE_PATCH, SLICE_STRIDE)
+    i, j = np.meshgrid(np.arange(SLICE_PATCH[0]), np.arange(SLICE_PATCH[1]),
+                       indexing="ij")
+    vy, vz = SLICE_VOLUME[1:]
+    return np.concatenate([(((sx + i) * vy + (sy + j)) * vz + sz).ravel()
+                           for sx, sy, sz in grid[:SLICE_BATCH]]
+                          ).astype(np.int32)
+
+
+def _device_ms(fn, kernel: str, calls: int = 3):
+    """Device time of the launches of ``kernel`` (a name fragment) per call
+    of ``fn``, and their number per call, from a ``torch.profiler`` trace of
+    ``calls`` calls."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return sum(spans) / 1e3 / calls, len(spans) / calls
+
+
+def _rows_case(big_r, c, starts, window, gen, label):
+    from vnet_tpu_torch.ops.blend import (blend_accumulate_rows,
+                                          blend_accumulate_rows_plain,
+                                          plan_rows)
+
+    r = window.shape[0]
+    st = torch.from_numpy(starts)
+    acc0 = torch.rand((big_r, c), generator=gen, device="cuda")
+    w0 = torch.rand((big_r, 1), generator=gen, device="cuda")
+    probs = torch.rand((len(starts), r, c), generator=gen, device="cuda")
+    acc_k, w_k = acc0.clone(), w0.clone()
+    torch.cuda.synchronize()
+    reset_counts()
+    blend_accumulate_rows(acc_k, w_k, probs, window, st)
+    launches = read_counts()["blend_rows"]
+    acc_p, w_p = acc0.clone(), w0.clone()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    blend_accumulate_rows_plain(acc_p, w_p, probs, window, st)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    equal = torch.equal(acc_k, acc_p) and torch.equal(w_k, w_p)
+    err = max((acc_k - acc_p).abs().max().item(),
+              (w_k - w_p).abs().max().item())
+    _, bounds = plan_rows(starts, r)
+    check(launches == len(bounds) - 1, f"row blend {label}: {launches} "
+                                       f"launches for {len(bounds) - 1} levels")
+
+    def call():
+        blend_accumulate_rows(acc_k, w_k, probs, window, st)
+
+    t0 = time.perf_counter()
+    plan_rows(starts, r)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ms, traced = _device_ms(call, "blend_rows_kernel")
+    check(traced == launches, f"row blend {label}: the trace shows {traced} "
+                              f"kernels per call, the count {launches}")
+    call_ms = time_ms(call, reps=3, warmup=False)
+    s = np.sort(starts.astype(np.int64))
+    covered = int(np.minimum(np.diff(s), r).sum()) + r  # rows in the union
+    nbytes = (2 * covered * (c + 1) * 4 + probs.nbytes + window.nbytes
+              + starts.nbytes)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[11] blend_accumulate_rows {label}: acc {tuple(acc0.shape)}, "
+        f"{len(starts)} segments of {r} rows, {launches} launches (overlap "
+        f"levels); bitwise_equal={equal} max_abs_err={err:.3e}; kernel "
+        f"{ms:.4f} ms (device time of its launches, profiler) host "
+        f"levelling {host_ms:.2f} ms whole call {call_ms:.2f} ms plain loop "
+        f"{plain_ms:.1f} ms byte bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e9:.3f} GB; no single PyTorch call)")
+    check(equal, f"row blend {label}: kernel differs from the plain loop")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None), launches
+
+
+def phase_rows():
+    """Row blend vs its plain loop at the evaluation slice's geometry and
+    at a ragged one."""
+    from vnet_tpu_torch.infer.sliding_window import cosine_window
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    r = SLICE_PATCH[2]
+    window = torch.from_numpy(cosine_window((r,)).reshape(r, 1)).cuda()
+    result, launches = _rows_case(int(np.prod(SLICE_VOLUME)), 3,
+                                  _slice_row_starts(), window, gen,
+                                  "slice geometry")
+    rng = np.random.default_rng(SEED)
+    big_r, r_small = 10007, 13
+    starts = rng.integers(0, big_r - r_small + 1, size=3000)
+    starts[1::7] = starts[::7][:len(starts[1::7])]  # duplicated starts
+    _rows_case(big_r, 3, starts.astype(np.int32),
+               torch.rand((r_small, 1), generator=gen, device="cuda") + 0.5,
+               gen, "ragged geometry")
+    return result, launches
+
+
 def run():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -633,19 +1030,42 @@ def run():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_flagship()
+    (stats, grad_stats), (n_stats, n_grad) = phase_bn()
+    tail, n_tail = phase_tail()
+    rows, n_rows = phase_rows()
+    own = "its own phase ({}); no entry point reaches it"
     say(json.dumps({"kernels": [
         dict(name="blend_accumulate_patches", route="cuda",
              source="vnet_tpu_torch/csrc/blend_accumulate.cu",
              replaces="vnet_tpu/ops/pallas/fused.py:220",
-             launches=launches, **blend),
+             launches=launches, launches_in="phase 4 (evaluation)", **blend),
         dict(name="pallas_dropout", route="cuda",
              source="vnet_tpu_torch/csrc/dropout.cu",
              replaces="vnet_tpu/ops/pallas/dropout.py:99",
-             launches=train_counts["dropout"], **drop),
+             launches=train_counts["dropout"],
+             launches_in="phase 7 (training)", **drop),
         dict(name="dw_conv_pallas", route="cuda",
              source="vnet_tpu_torch/csrc/dw_conv.cu",
              replaces="vnet_tpu/ops/pallas/dw_conv.py:209",
-             launches=train_counts["dw_conv"], **dw)]}))
+             launches=train_counts["dw_conv"],
+             launches_in="phase 7 (training)", **dw),
+        dict(name="bn_stats", route="cuda",
+             source="vnet_tpu_torch/csrc/bn_stats.cu",
+             replaces="vnet_tpu/ops/pallas/fused.py:96", launches=n_stats,
+             launches_in=own.format("phase 9, batch_norm_train"), **stats),
+        dict(name="bn_grad_stats", route="cuda",
+             source="vnet_tpu_torch/csrc/bn_stats.cu",
+             replaces="vnet_tpu/ops/pallas/fused.py:152", launches=n_grad,
+             launches_in=own.format("phase 9, batch_norm_train"),
+             **grad_stats),
+        dict(name="fused_bias_prelu_residual", route="cuda",
+             source="vnet_tpu_torch/csrc/bias_prelu_residual.cu",
+             replaces="vnet_tpu/ops/pallas/fused.py:50", launches=n_tail,
+             launches_in=own.format("phase 10"), **tail),
+        dict(name="blend_accumulate_rows", route="cuda",
+             source="vnet_tpu_torch/csrc/blend_rows.cu",
+             replaces="vnet_tpu/ops/pallas/fused.py:332", launches=n_rows,
+             launches_in=own.format("phase 11, slice geometry"), **rows)]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,6 +55,8 @@ def test_chip_smoke_names_no_jax_package_module():
 def test_port_modules_cover_the_package():
     assert "vnet_tpu_torch.data.loader" in PORT_MODULES
     assert "vnet_tpu_torch.io" in PORT_MODULES
+    assert "vnet_tpu_torch.ops.fused" in PORT_MODULES
+    assert "vnet_tpu_torch.ops.batchnorm" in PORT_MODULES
 
 
 @pytest.mark.parametrize("relpath", PORT_SOURCES)
