@@ -9,7 +9,8 @@ non-zero before the result line:
    whether PyYAML and tensorboardX import; the six kernel sources (blend,
    dropout, dW, BN statistics, fused tail, row blend) built from source in
    parallel, one ``nvcc`` each, with their build times and ptxas registers
-   and spills;
+   and spills; the tensor-core instructions in the SASS of the dW library's
+   bf16 kernels (``cuobjdump --dump-sass``);
 2. blend kernel vs its plain PyTorch version on the card, at the slice's
    shapes (10 contributions of (256, 256, 32, 4) f32 into a (384, 384, 64, 4)
    accumulator, starts overlapping on every axis) and at a ragged geometry
@@ -30,10 +31,18 @@ non-zero before the result line:
    ``bits8`` at the config's rate 0.01: bitwise equal, keep fraction within
    5 sigma, backward mask = forward mask for a gradient that is not
    channels-last; kernel, plain and ``F.dropout`` times;
-6. dW kernel vs its plain version at the main path's shapes, batch 96 bf16
-   (16->16 and 32->16 5^3 at 64^3, 128->128 at 8^3, 256->256 at 4^3, the
-   1^3 16->3 output conv): max |diff| <= DW_RTOL * max |dW|; kernel, plain
-   and cuDNN weight-gradient times;
+6. dW kernel vs its plain version at the ten distinct stride-1 weight
+   gradients of the flagship step, batch 96 bf16 (16->16 and 32->16 at
+   64^3, 32->32 and 64->32 at 32^3, 64->64 and 128->64 at 16^3, 128->128
+   and 256->128 at 8^3, 256->256 at 4^3, all 5^3, and the 1^3 16->3 output
+   conv), each with its launches per step: max |diff| <= DW_RTOL * max |dW|
+   and two kernel runs bitwise equal; kernel ms, TFLOP/s, bound, plain and
+   cuDNN weight-gradient ms, the planned regime; step-weighted sums (launches
+   x ms over the ten shapes). Then edge cases under the same checks: odd
+   extents with Z % 16 != 0 in both tensor-core regimes, f16, float32 (the
+   CUDA-core kernel), a g that is not channels-last, 1^3, 3^3 and 7^3
+   kernels. Phase 1 has checked that the bf16 tensor-core kernels' SASS
+   holds HMMA (mma.sync) or HGMMA (wgmma) instructions;
 7. the training main path: ``python -m vnet_tpu_torch -p train``'s
    ``main`` on ``cuda`` at ``configs/config.json``'s network (16 channels,
    4 levels, PReLU, batch norm, dropout 0.01, weighted Sorensen, Adam,
@@ -103,9 +112,9 @@ SEED = 0
 # phase 3: f32 on the card (TF32 off) vs f32 on the CPU differ only by
 # summation order; allowed max |diff| relative to the largest CPU logit
 FORWARD_RTOL = 1e-3
-# phase 6: float32 sums of bf16 products (exact in float32) over up to 25M
-# positions, in another order than the plain version's; allowed max |diff|
-# relative to max |dW|
+# phase 6: sums of bf16 products (exact in float32) over up to 25M positions,
+# in another order than the plain version's: tensor-core sums over at most
+# 512 positions, float32 beyond; allowed max |diff| relative to max |dW|
 DW_RTOL = 1e-4
 # phase 9: float32 sums over up to 25M rows in another order than the plain
 # version's; allowed |diff| per channel relative to the sum of |terms|
@@ -180,7 +189,34 @@ def phase_device_and_build():
             if "registers" in line or "spill" in line:
                 say(f"[1] {kernel} ptxas: {line.strip()}")
     check(has["yaml"], "PyYAML is needed to read the pipeline YAML")
+    mma = {name: ops for name, ops in
+           tensor_core_ops(built[KERNELS.index("dw_conv")].path).items()
+           if "dw_mma_kernel" in name and "bfloat16" in name}
+    for fn, ops in sorted(mma.items()):
+        say(f"[1] dw_conv SASS {fn}: {', '.join(sorted(ops)) or 'none'}")
+    check(mma and all(mma.values()),
+          "the bf16 dW kernels hold no HMMA or HGMMA instruction")
     return name, smi
+
+
+def tensor_core_ops(library) -> dict:
+    """``{kernel: {"HMMA", "HGMMA"} it holds}`` from ``cuobjdump
+    --dump-sass`` of a built library (HMMA is mma.sync, HGMMA wgmma)."""
+    from vnet_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    found, name = {}, None
+    for line in sass.splitlines():
+        text = line.strip()
+        if text.startswith("Function :"):
+            name = text.split(":", 1)[1].strip()
+            found[name] = set()
+        elif name is not None:
+            found[name].update(op for op in ("HMMA", "HGMMA")
+                               if f"{op}." in text or f"{op} " in text)
+    return found
 
 
 def _kernel_vs_plain(acc_shape, patch, starts, gen, label):
@@ -442,21 +478,54 @@ def phase_dropout():
     return result["pallas"]
 
 
-DW_SHAPES = (  # (Ci, Co, side, k) at batch 96: the main path's stride-1 convs
-    (16, 16, 64, 5), (32, 16, 64, 5), (128, 128, 8, 5), (256, 256, 4, 5),
-    (16, 3, 64, 1))
+DW_SHAPES = (  # (Ci, Co, side, k, launches per step) at batch 96: the ten
+    # distinct stride-1 weight gradients of the flagship step
+    # (vnet_tpu_torch/models/vnet.py: 21 5^3 block convs, the 1^3 output conv)
+    (16, 16, 64, 5, 1), (32, 16, 64, 5, 1), (32, 32, 32, 5, 3),
+    (64, 32, 32, 5, 1), (64, 64, 16, 5, 5), (128, 64, 16, 5, 1),
+    (128, 128, 8, 5, 5), (256, 128, 8, 5, 1), (256, 256, 4, 5, 3),
+    (16, 3, 64, 1, 1))
+DW_EDGE = (  # (B, Ci, Co, (X, Y, Z), k, dtype, g channels-last)
+    (3, 16, 16, (9, 11, 13), 5, torch.bfloat16, True),   # ragged, narrow
+    (2, 64, 32, (7, 5, 9), 5, torch.bfloat16, True),     # ragged, wide
+    (4, 32, 16, (16, 16, 16), 5, torch.float16, True),
+    (2, 16, 16, (8, 8, 8), 5, torch.float32, True),      # CUDA cores
+    (2, 16, 32, (12, 10, 16), 3, torch.bfloat16, False),
+    (2, 32, 16, (10, 10, 10), 1, torch.bfloat16, True),
+    (1, 16, 16, (6, 6, 6), 7, torch.bfloat16, True))
+
+
+def _dw_agree(x, g, ks, label):
+    """Kernel vs plain within DW_RTOL * max|dW| and two kernel runs
+    bitwise equal; returns (max |diff|, max |dW|)."""
+    from vnet_tpu_torch.ops.dw_conv import dw_conv, dw_conv_plain
+
+    out_k = dw_conv(x, g, ks)
+    out_k2 = dw_conv(x, g, ks)
+    out_p = dw_conv_plain(x, g, ks)
+    torch.cuda.synchronize()
+    same = torch.equal(out_k, out_k2)
+    err = (out_k - out_p).abs().max().item()
+    scale = out_p.abs().max().item()
+    check(err <= DW_RTOL * scale,
+          f"dW {label}: kernel differs from the plain version ({err:.3e} "
+          f"against max|dW| {scale:.3e})")
+    check(same, f"dW {label}: two kernel runs differ")
+    return err, scale
 
 
 def phase_dw():
-    """dW kernel vs plain at the main path's shapes; the kernels line
-    reports the sums over the five shapes."""
-    from vnet_tpu_torch.ops.dw_conv import dw_conv, dw_conv_plain
+    """dW kernel vs plain at the flagship step's ten weight-gradient shapes
+    and at edge cases; the kernels line reports the step-weighted sums
+    (launches per step x ms)."""
+    from vnet_tpu_torch.ops.dw_conv import dw_conv, dw_conv_plain, plan
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cl = torch.channels_last_3d
     total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                  library_ms=0.0, flops=0.0, bytes=0.0)
-    for ci, co, side, k in DW_SHAPES:
+    check(sum(s[-1] for s in DW_SHAPES) == 22, "DW_SHAPES launches != 22")
+    for ci, co, side, k, n in DW_SHAPES:
         vol = (side,) * 3
         x = torch.randn((FLAGSHIP_BATCH, ci) + vol, generator=gen,
                         device="cuda").to(torch.bfloat16).contiguous(
@@ -465,12 +534,9 @@ def phase_dw():
                         device="cuda").to(torch.bfloat16).contiguous(
                             memory_format=cl)
         ks = (k,) * 3
-        out_k = dw_conv(x, g, ks)
-        out_p = dw_conv_plain(x, g, ks)
-        torch.cuda.synchronize()
-        err = (out_k - out_p).abs().max().item()
-        scale = out_p.abs().max().item()
-        del out_k, out_p
+        p = plan(FLAGSHIP_BATCH, vol, ci, co, ks, x.dtype)
+        label = f"{ci}->{co} k{k} at {side}^3"
+        err, scale = _dw_agree(x, g, ks, label)
         w = torch.empty((co, ci) + ks, dtype=torch.bfloat16, device="cuda")
         pad = ((k - 1) // 2,) * 3
         ms = time_ms(lambda: dw_conv(x, g, ks), reps=5)
@@ -482,25 +548,40 @@ def phase_dw():
         flops = 2.0 * (x.numel() // ci) * k ** 3 * ci * co
         nbytes = x.nbytes + g.nbytes + co * ci * k ** 3 * 4
         bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        say(f"[6] dW {ci}->{co} k{k} at {side}^3 batch {FLAGSHIP_BATCH} "
-            f"bf16: max|diff| {err:.3e} max|dW| {scale:.3e} (tolerance "
-            f"{DW_RTOL:g} x max|dW|); kernel {ms:.3f} ms "
+        say(f"[6] dW {label} batch {FLAGSHIP_BATCH} bf16, x{n} per step, "
+            f"{p.regime} (tiles {p.tiles} brick {p.brick} ry {p.ry} chunks "
+            f"{p.chunks}): max|diff| {err:.3e} max|dW| "
+            f"{scale:.3e} ({err / scale:.2e} of it, tolerance {DW_RTOL:g}), "
+            f"bitwise run to run; kernel {ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
             f"cuDNN {lib_ms:.3f} ms bound {bound_ms:.4f} ms "
             f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
-        check(err <= DW_RTOL * scale,
-              f"dW {ci}->{co} k{k}: kernel differs from the plain version")
         total["max_abs_err"] = max(total["max_abs_err"], err)
         for key, v in (("ms", ms), ("plain_ms", plain_ms),
                        ("library_ms", lib_ms), ("bound_ms", bound_ms),
                        ("flops", flops), ("bytes", nbytes)):
-            total[key] += v
+            total[key] += n * v
         del x, g, w
+        torch.cuda.empty_cache()
     bound_by = ("operations" if total["flops"] / BF16_FLOPS
                 > total["bytes"] / HBM_BYTES_PER_S else "bytes")
-    say(f"[6] dW over the five shapes: kernel {total['ms']:.3f} ms, cuDNN "
-        f"{total['library_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms "
-        f"({bound_by})")
+    say(f"[6] dW per step (22 launches, launches x ms over the ten shapes): "
+        f"kernel {total['ms']:.3f} ms, cuDNN {total['library_ms']:.3f} ms, "
+        f"plain {total['plain_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms "
+        f"({bound_by}, {total['flops'] / 1e12:.3f} TFLOP)")
+    for b, ci, co, vol, k, dtype, g_cl in DW_EDGE:
+        x = torch.randn((b, ci) + vol, generator=gen, device="cuda").to(
+            dtype).contiguous(memory_format=cl)
+        g = torch.randn((b, co) + vol, generator=gen, device="cuda").to(dtype)
+        if g_cl:
+            g = g.contiguous(memory_format=cl)
+        ks = (k,) * 3
+        p = plan(b, vol, ci, co, ks, dtype)
+        label = (f"{ci}->{co} k{k} {dtype} batch {b} {vol}"
+                 f"{'' if g_cl else ', g not channels-last'}")
+        err, scale = _dw_agree(x, g, ks, label)
+        say(f"[6] dW edge case {label}, {p.regime}: max|diff| {err:.3e} "
+            f"({err / scale:.2e} of max|dW|), bitwise run to run")
     del total["flops"], total["bytes"]
     return dict(total, bound_by=bound_by)
 
@@ -1048,7 +1129,9 @@ def run():
              source="vnet_tpu_torch/csrc/dw_conv.cu",
              replaces="vnet_tpu/ops/pallas/dw_conv.py:209",
              launches=train_counts["dw_conv"],
-             launches_in="phase 7 (training)", **dw),
+             launches_in="phase 7 (training)",
+             times_are="per training step: launches per step x ms, summed "
+                       "over phase 6's ten shapes", **dw),
         dict(name="bn_stats", route="cuda",
              source="vnet_tpu_torch/csrc/bn_stats.cu",
              replaces="vnet_tpu/ops/pallas/fused.py:96", launches=n_stats,

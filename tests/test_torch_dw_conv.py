@@ -8,7 +8,8 @@ JAX package's XLA formulation (``_dw_xla``) at the V-Net's narrow shapes
 against torch autograd of ``F.conv3d``. All in float32; the sums run in
 another order on each side, so values compare at ``rtol = 1e-4`` and
 ``atol = 1e-4 * max|dW|``. The CUDA kernel is held against the plain
-version on the card (``cuda`` test below and ``chip_smoke.py`` phase 6).
+version on the card (``cuda`` test below and ``chip_smoke.py`` phase 6),
+and the planner that splits its work is checked here.
 """
 
 import jax.numpy as jnp
@@ -20,8 +21,10 @@ import torch.nn.functional as F
 from vnet_tpu.ops.conv_vjp import same_pads
 from vnet_tpu.ops.pallas.dw_conv import _dw_xla, dw_conv_pallas
 from vnet_tpu_torch.models.layers import SpatialConv
-from vnet_tpu_torch.ops.dw_conv import (conv3d_dw, dw_conv, dw_conv_plain,
-                                        split)
+from vnet_tpu_torch.tools.profile_step import group_of
+from vnet_tpu_torch.ops.dw_conv import (MAX_CHUNKS, MMA_SMEM, conv3d_dw,
+                                        dw_conv, dw_conv_plain, launch,
+                                        mma_smem, plan, split)
 
 RTOL = 1e-4
 
@@ -128,6 +131,13 @@ def test_wrapper_never_falls_back_off_the_cpu():
         dw_conv(x, x, (3, 3, 3))
 
 
+def test_launch_takes_channels_last_cuda_tensors_only(rng):
+    _, _, xt, gt = _pair(rng, 1, 4, 4, 4, 16, 16)
+    p = plan(1, (4, 4, 4), 16, 16, (3, 3, 3), torch.bfloat16)
+    with pytest.raises(ValueError, match="channels-last CUDA"):
+        launch(xt.bfloat16(), gt.bfloat16(), (3, 3, 3), p)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -135,22 +145,111 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# the ten distinct stride-1 weight gradients of the flagship step, batch 96
+FLAGSHIP_DW = [(16, 16, 64, 5), (32, 16, 64, 5), (32, 32, 32, 5),
+               (64, 32, 32, 5), (64, 64, 16, 5), (128, 64, 16, 5),
+               (128, 128, 8, 5), (256, 128, 8, 5), (256, 256, 4, 5),
+               (16, 3, 64, 1)]
+
+
+@pytest.mark.parametrize("batch,vol,ci,co,k", [
+    (96, (s,) * 3, ci, co, k) for ci, co, s, k in FLAGSHIP_DW] + [
+    (3, (9, 11, 13), 16, 16, 5), (2, (7, 5, 9), 64, 32, 5),
+    (1, (1, 1, 1), 16, 16, 7), (1000, (1, 1, 1), 32, 16, 3),
+    (2, (12, 10, 16), 16, 32, 3), (2, (10, 10, 10), 32, 16, 1)])
+def test_plan_covers_every_brick(batch, vol, ci, co, k):
+    """Every brick of the volume falls in exactly one chunk, and the plan
+    stays inside the kernel's limits (``vnet_dw_conv_mma`` refuses it
+    otherwise)."""
+    p = plan(batch, vol, ci, co, (k,) * 3, torch.bfloat16)
+    if p.regime == "simt":
+        positions = batch * int(np.prod(vol))
+        assert (p.chunks - 1) * p.per_chunk < positions
+        assert positions <= p.chunks * p.per_chunk
+        return
+    bricks = p.bricks(batch, vol)
+    assert 1 <= p.chunks <= MAX_CHUNKS
+    assert (p.chunks - 1) * p.per_chunk < bricks <= p.chunks * p.per_chunk
+    positions = int(np.prod(p.brick))
+    assert positions % 16 == 0 and positions <= 4096
+    assert max(p.brick[:2]) <= 256  # TMA box extents
+    assert p.smem == mma_smem(p.tiles, p.brick, p.ry, k, p.stages)
+    assert p.smem <= MMA_SMEM
+    assert ci % p.tiles[0] == 0 and co % p.tiles[1] == 0
+    assert 1 <= p.ry <= k and p.threads() <= 64 * k  # the launch bound
+
+
+@pytest.mark.parametrize("ci,co,dtype,regime,tiles", [
+    (16, 16, torch.bfloat16, "narrow", (16, 16)),
+    (32, 16, torch.bfloat16, "narrow", (32, 16)),
+    (16, 32, torch.float16, "narrow", (16, 32)),
+    (32, 32, torch.bfloat16, "wide", (16, 32)),
+    (256, 128, torch.float16, "wide", (16, 32)),
+    (48, 16, torch.bfloat16, "wide", (16, 16)),
+    (16, 3, torch.bfloat16, "simt", (0, 0)),
+    (16, 16, torch.float32, "simt", (0, 0)),
+])
+def test_plan_regime(ci, co, dtype, regime, tiles):
+    """bf16 and f16 with channels in multiples of 16 take tensor cores
+    (narrow where one block holds every channel pair); float32 and other
+    channel counts take the CUDA-core kernel."""
+    p = plan(4, (8, 8, 8), ci, co, (5, 5, 5), dtype)
+    assert (p.regime, p.tiles) == (regime, tiles)
+
+
+def test_plan_refuses_other_tiles_and_kernel_depths():
+    with pytest.raises(ValueError, match="slabs"):
+        plan(4, (8, 8, 8), 32, 32, (5, 5, 5), torch.bfloat16, tiles=(32, 32))
+    assert plan(4, (8, 8, 8), 16, 16, (5, 5, 9),
+                torch.bfloat16).regime == "simt"
+
+
+def test_mma_smem_counts_every_stage():
+    # x box 1 x 2 x (8 + 4) x (32 + 4) rows of 48 bytes, g brick 512 rows
+    # of 48 bytes, 4 bytes of row table per position, 8 per barrier
+    x_bytes, g_bytes = 2 * 12 * 36 * 48, 512 * 48
+    assert mma_smem((16, 16), (1, 2, 8, 32), 5, 5, 2) == \
+        2 * (x_bytes + g_bytes + 8) + 4 * 512
+    assert mma_smem((16, 16), (1, 2, 8, 32), 5, 5, 3) == \
+        3 * (x_bytes + g_bytes + 8) + 4 * 512
+
+
+@pytest.mark.parametrize("name", [
+    "void dw_mma_kernel<__nv_bfloat16, 5>(CUtensorMap, CUtensorMap, float*, "
+    "MmaArgs)",
+    "void dw_partial_kernel<float>(float const*, float const*, float*, int)",
+    "dw_reduce_kernel(float const*, float*, int, int, int, int)"])
+def test_profile_step_counts_every_dw_kernel(name):
+    assert group_of(name) == "dW kernel"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,k", [((2, 9, 8, 7, 16, 16), 5),
-                                     ((2, 8, 8, 8, 32, 16), 5),
-                                     ((2, 4, 4, 4, 256, 256), 5),
-                                     ((2, 8, 8, 8, 16, 3), 1)])
-def test_kernel_equals_plain_on_card(shape, k, cuda_device):
+@pytest.mark.parametrize("shape,k,dtype,g_cl", [
+    ((2, 9, 8, 7, 16, 16), 5, torch.bfloat16, True),     # narrow, ragged
+    ((2, 8, 8, 8, 32, 16), 5, torch.bfloat16, True),     # narrow
+    ((3, 9, 11, 13, 32, 32), 5, torch.bfloat16, True),   # wide, ragged
+    ((2, 4, 4, 4, 256, 256), 5, torch.bfloat16, True),   # wide
+    ((2, 8, 8, 8, 16, 3), 1, torch.bfloat16, True),      # CUDA cores
+    ((2, 6, 10, 16, 32, 16), 5, torch.float16, True),
+    ((2, 5, 6, 7, 16, 16), 3, torch.float32, True),      # CUDA cores
+    ((2, 7, 9, 11, 16, 32), 5, torch.bfloat16, False),   # g not CL
+])
+def test_kernel_equals_plain_on_card(shape, k, dtype, g_cl, cuda_device):
     b, x, y, z, ci, co = shape
     gen = torch.Generator(device=cuda_device).manual_seed(0)
+    cl = torch.channels_last_3d
     xt = torch.randn((b, ci, x, y, z), generator=gen, device=cuda_device
-                     ).bfloat16()
+                     ).to(dtype).contiguous(memory_format=cl)
     gt = torch.randn((b, co, x, y, z), generator=gen, device=cuda_device
-                     ).bfloat16()
+                     ).to(dtype)
+    if g_cl:
+        gt = gt.contiguous(memory_format=cl)
     before = dw_conv.launches
     got = dw_conv(xt, gt, (k,) * 3)
+    again = dw_conv(xt, gt, (k,) * 3)
     ref = dw_conv_plain(xt, gt, (k,) * 3)
     torch.cuda.synchronize()
-    assert dw_conv.launches == before + 1
+    assert dw_conv.launches == before + 2
+    assert torch.equal(got, again)  # bitwise from run to run
     torch.testing.assert_close(got, ref, rtol=RTOL,
                                atol=RTOL * ref.abs().max().item())

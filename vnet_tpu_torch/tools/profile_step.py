@@ -35,7 +35,8 @@ NUM_CLASSES = 3
 
 # kernel-name fragments -> group, first match wins
 GROUPS = (
-    ("dw_partial_kernel", "dW kernel"), ("dw_reduce_kernel", "dW kernel"),
+    ("dw_mma_kernel", "dW kernel"), ("dw_partial_kernel", "dW kernel"),
+    ("dw_reduce_kernel", "dW kernel"),
     ("dropout_kernel", "dropout kernel"),
     ("multi_tensor", "optimizer"), ("adam", "optimizer"),
     ("conv", "cuDNN convolution"), ("xmma", "cuDNN convolution"),
