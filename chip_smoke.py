@@ -13,9 +13,14 @@ non-zero before the result line:
    bf16 kernels (``cuobjdump --dump-sass``);
 2. blend kernel vs its plain PyTorch version on the card, at the slice's
    shapes (10 contributions of (256, 256, 32, 4) f32 into a (384, 384, 64, 4)
-   accumulator, starts overlapping on every axis) and at a ragged geometry
-   (odd extents, clamped starts): results must be bitwise equal (same adds
-   in the same order); both timed with CUDA events, median of 25;
+   accumulator, starts overlapping on every axis), at the dense-stride
+   (LiTS) geometry (the first 10 patches of the stride-16 grid of the same
+   shapes) and at a ragged geometry (odd extents, clamped starts, C = 3):
+   results must be bitwise equal (same adds in the same order), the first
+   two on the kernel's float4 path and the ragged one on its float path;
+   the kernel's device time from a ``torch.profiler`` trace, the wrapper
+   call and the plain version with CUDA events (median of 25), beside the
+   byte bound of the covered elements;
 3. the full-width VNet forward of one (1, 256, 256, 32, 1) patch in f32 with
    TF32 off, on the card vs the same module on the CPU;
 4. the main path: two synthetic 384x384x64 cases evaluated through
@@ -23,9 +28,10 @@ non-zero before the result line:
    (``configs/config_eval_gaussian.json``: 16 channels, 4 levels, bf16,
    patch 256x256x32, stride 128x128x16, batch 10, cosine blend, LCC, volume
    threshold 50) with random weights from a seeded generator; the blend
-   kernel's launches must equal the number of patch batches, outputs must
-   exist, labels lie in {0, 1, 2}, probability maps are finite and agree
-   with the plain slice-add blend (``BlendImpl: xla``) on the card;
+   kernel's launches must equal the number of patch batches and take its
+   float4 path, outputs must exist, labels lie in {0, 1, 2}, probability
+   maps are finite and agree with the plain slice-add blend (``BlendImpl:
+   xla``) on the card;
 5. dropout kernel vs its plain version at (96, 16, 64, 64, 64) bf16
    channels-last, the main path's largest dropout, for ``pallas`` and
    ``bits8`` at the config's rate 0.01: bitwise equal, keep fraction within
@@ -72,10 +78,13 @@ non-zero before the result line:
    checked call; kernel and plain times;
 11. the row blend vs its plain loop over segments at the evaluation slice's
    geometry flattened (the z-lines of the first batch of 10 patches, 655360
-   segments of 32 rows, the cosine window's z-profile) and at a ragged
-   geometry: bitwise equal, one launch per overlap level (the count and a
-   ``torch.profiler`` trace agree); the kernels' device time from the
-   trace, the host levelling, the whole call and the plain loop timed.
+   segments of 32 rows, the cosine window's z-profile), at a ragged
+   geometry (duplicated starts, a segment flush with R) and with segments
+   of 300 rows and 10 channels: bitwise equal, one accumulate launch per
+   call (the count and a ``torch.profiler`` trace agree); from the trace
+   the device time of the accumulate kernel, of the tile plan's kernels and
+   of the starts' copy, then the whole call (host clock) and the plain
+   loop; no segments launch nothing.
 
 No entry point reaches the kernels of phases 9-11 (as in the JAX package);
 their launches in the ``kernels`` line are the counts of their own phase.
@@ -219,7 +228,11 @@ def tensor_core_ops(library) -> dict:
     return found
 
 
-def _kernel_vs_plain(acc_shape, patch, starts, gen, label):
+def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width):
+    """Blend kernel vs the plain slice-adds: bitwise equal, on the float
+    path of ``width`` floats per element; times and the byte bound (each
+    covered accumulator element read and written once, each contribution
+    read once)."""
     from vnet_tpu_torch.ops.blend import (blend_accumulate_patches,
                                           blend_accumulate_plain)
 
@@ -229,24 +242,49 @@ def _kernel_vs_plain(acc_shape, patch, starts, gen, label):
     contrib = torch.rand((b,) + tuple(patch) + (acc_shape[-1],),
                          generator=gen, device=dev)
     st = torch.from_numpy(np.ascontiguousarray(starts, np.int32))
+    cover = torch.zeros(acc_shape[:3], dtype=torch.int32, device=dev)
+    px, py, pz = patch
+    for sx, sy, sz in st.tolist():
+        cover[sx:sx + px, sy:sy + py, sz:sz + pz] += 1
+    covered, depth = int((cover > 0).sum()), int(cover.max())
+    del cover
     out_k = blend_accumulate_patches(acc0.clone(), contrib, st)
+    got_width = blend_accumulate_patches.last_width
     out_p = blend_accumulate_plain(acc0.clone(), contrib, st)
     torch.cuda.synchronize()
     err = (out_k - out_p).abs().max().item()
     equal = torch.equal(out_k, out_p)
+    del out_k, out_p
     acc_k, acc_p = acc0.clone(), acc0.clone()
-    ms = time_ms(lambda: blend_accumulate_patches(acc_k, contrib, st))
+
+    def call():
+        blend_accumulate_patches(acc_k, contrib, st)
+
+    call_ms = time_ms(call)
     plain_ms = time_ms(lambda: blend_accumulate_plain(acc_p, contrib, st))
+    calls = 5
+    spans, tries = _device_spans(call, "blend_accumulate_kernel", 1, calls,
+                                 label)
+    ms = statistics.median(t for name, t in spans
+                           if "blend_accumulate_kernel" in name)
+    nbytes = (2 * covered * acc_shape[-1] * 4 + contrib.nbytes)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     say(f"[2] {label}: acc {tuple(acc_shape)} contrib {tuple(contrib.shape)} "
-        f"starts {starts.tolist()}")
-    # bytes: acc read and written once, every contribution read once
-    bound_ms = (2 * acc0.nbytes + contrib.nbytes) / HBM_BYTES_PER_S * 1e3
-    say(f"[2] {label}: bitwise_equal={equal} max_abs_err={err:.3e} "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms (median of 25); "
-        f"byte bound {bound_ms:.4f} ms")
+        f"starts {starts.tolist()}; {covered} covered elements, up to "
+        f"{depth} patches over one")
+    say(f"[2] {label}: {'float4' if got_width == 4 else 'float'} path "
+        f"(width {got_width}, expected {width}); bitwise_equal={equal} "
+        f"max_abs_err={err:.3e}; kernel {ms:.4f} ms of device time "
+        f"(profiler, median of {calls}, one launch a call in the trace, "
+        f"try {tries}), {call_ms:.4f} ms per wrapper call "
+        f"and plain {plain_ms:.4f} ms (CUDA events around each call, "
+        f"median of 25); byte bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e9:.4f} GB), {bound_ms / ms:.1%} of it")
     check(equal, f"{label}: kernel differs from the plain version "
                  f"(max abs err {err})")
-    return err, ms, plain_ms, bound_ms
+    check(got_width == width, f"{label}: the launch took the width "
+                              f"{got_width} path, expected {width}")
+    return err, ms, plain_ms, bound_ms, call_ms
 
 
 def phase_kernel_vs_plain(card):
@@ -255,15 +293,21 @@ def phase_kernel_vs_plain(card):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     grid = build_patch_grid(SLICE_VOLUME, SLICE_PATCH, SLICE_STRIDE)
     check(len(grid) == 12, f"slice grid has {len(grid)} patches, expected 12")
-    err, ms, plain_ms, bound_ms = _kernel_vs_plain(
+    err, ms, plain_ms, bound_ms, call_ms = _kernel_vs_plain(
         SLICE_VOLUME + (4,), SLICE_PATCH, grid[:SLICE_BATCH], gen,
-        f"slice shapes on {card}")
+        f"slice shapes on {card}", 4)
+    # ROADMAP Queue 1 #2: the LiTS geometry, stride 16 on every axis
+    dense = build_patch_grid(SLICE_VOLUME, SLICE_PATCH, (16, 16, 16))
+    err_d = _kernel_vs_plain(SLICE_VOLUME + (4,), SLICE_PATCH,
+                             dense[:SLICE_BATCH], gen, "dense stride 16",
+                             4)[0]
     ragged_vol, ragged_patch = (97, 83, 45), (40, 33, 17)
     ragged = build_patch_grid(ragged_vol, ragged_patch, (23, 19, 11))
-    err_r, _, _, _ = _kernel_vs_plain(ragged_vol + (3,), ragged_patch,
-                                      ragged[-7:], gen, "ragged geometry")
-    return dict(max_abs_err=max(err, err_r), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+    err_r = _kernel_vs_plain(ragged_vol + (3,), ragged_patch, ragged[-7:],
+                             gen, "ragged geometry", 1)[0]
+    return dict(max_abs_err=max(err, err_d, err_r), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                share_of_bound=bound_ms / ms, call_ms=call_ms)
 
 
 def phase_forward_card_vs_cpu():
@@ -354,16 +398,18 @@ def phase_main_path(tmp):
     wall = time.perf_counter() - t0
     counts = read_counts()
     launches = counts["blend_accumulate"]
+    width = _counted()["blend_accumulate"].last_width
 
     say(f"[4] main path: {len(results)} cases in {wall:.2f} s "
         f"({wall / 2:.2f} s per case incl. model build, checkpoint load and "
         f"first-call warm-up); blend launches {launches}, batches "
-        f"{2 * n_batches_per_case}")
+        f"{2 * n_batches_per_case}, float path width {width}")
     check(len(results) == 2, f"{len(results)} labels written, expected 2")
     check(launches == 2 * n_batches_per_case,
           "blend kernel launches != patch batches")
     check(launches == sum(counts.values()),
           f"evaluation launched other kernels: {counts}")
+    check(width == 4, f"the evaluation's blend took the width {width} path")
     for case_dir in cases:
         label = read_image(os.path.join(case_dir, "label_tf.nii.gz"))
         check(label.GetSize() == SLICE_VOLUME, f"label {label.GetSize()}")
@@ -995,26 +1041,41 @@ def _slice_row_starts():
                           ).astype(np.int32)
 
 
-def _device_ms(fn, kernel: str, calls: int = 3):
-    """Device time of the launches of ``kernel`` (a name fragment) per call
-    of ``fn``, and their number per call, from a ``torch.profiler`` trace of
-    ``calls`` calls."""
+def _device_spans(fn, kernel: str, per_call: int, calls: int, label: str):
+    """``([(name, ms)], tries)``: the device events of ``calls`` calls of
+    ``fn`` from a ``torch.profiler`` trace, which must hold ``per_call``
+    events of ``kernel`` (a name fragment) a call, as the launch count says.
+    A trace that starts cold can miss device events, so one untimed trace
+    of one call comes first, and a trace whose count differs is taken
+    again, three tries in all: a kernel that runs another number of times
+    fails every one."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
+    with torch.profiler.profile(activities=acts):
+        fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    return sum(spans) / 1e3 / calls, len(spans) / calls
+    for tries in range(1, 4):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        found = sum(kernel in name for name, _ in spans)
+        if found == per_call * calls:
+            return spans, tries
+    check(False, f"{label}: the trace shows {found} {kernel} events in "
+                 f"{calls} calls, the count {per_call} a call")
 
 
 def _rows_case(big_r, c, starts, window, gen, label):
+    """Row blend vs its plain loop: bitwise equal in one launch (the count
+    and the trace agree); the copy of the starts, the plan's kernels and
+    the accumulate kernel timed apart from the trace, the whole call by the
+    host clock."""
     from vnet_tpu_torch.ops.blend import (blend_accumulate_rows,
-                                          blend_accumulate_rows_plain,
-                                          plan_rows)
+                                          blend_accumulate_rows_plain)
 
     r = window.shape[0]
     st = torch.from_numpy(starts)
@@ -1037,41 +1098,57 @@ def _rows_case(big_r, c, starts, window, gen, label):
     equal = torch.equal(acc_k, acc_p) and torch.equal(w_k, w_p)
     err = max((acc_k - acc_p).abs().max().item(),
               (w_k - w_p).abs().max().item())
-    _, bounds = plan_rows(starts, r)
-    check(launches == len(bounds) - 1, f"row blend {label}: {launches} "
-                                       f"launches for {len(bounds) - 1} levels")
+    del acc_p, w_p
+    check(launches == 1, f"row blend {label}: {launches} launches in one "
+                         f"call")
 
     def call():
         blend_accumulate_rows(acc_k, w_k, probs, window, st)
 
-    t0 = time.perf_counter()
-    plan_rows(starts, r)
-    host_ms = (time.perf_counter() - t0) * 1e3
-    ms, traced = _device_ms(call, "blend_rows_kernel")
-    check(traced == launches, f"row blend {label}: the trace shows {traced} "
-                              f"kernels per call, the count {launches}")
-    call_ms = time_ms(call, reps=3, warmup=False)
+    calls = 3
+    spans, tries = _device_spans(call, "blend_rows_kernel", launches, calls,
+                                 f"row blend {label}")
+    kernel = [ms for name, ms in spans if "blend_rows_kernel" in name]
+    copy = [ms for name, ms in spans if "Memcpy" in name]
+    plan = [ms for name, ms in spans
+            if "blend_rows_kernel" not in name and "Memcpy" not in name]
+    ms, copy_ms, plan_ms = (sum(x) / calls for x in (kernel, copy, plan))
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    call_ms = statistics.median(walls)
     s = np.sort(starts.astype(np.int64))
     covered = int(np.minimum(np.diff(s), r).sum()) + r  # rows in the union
     nbytes = (2 * covered * (c + 1) * 4 + probs.nbytes + window.nbytes
               + starts.nbytes)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     say(f"[11] blend_accumulate_rows {label}: acc {tuple(acc0.shape)}, "
-        f"{len(starts)} segments of {r} rows, {launches} launches (overlap "
-        f"levels); bitwise_equal={equal} max_abs_err={err:.3e}; kernel "
-        f"{ms:.4f} ms (device time of its launches, profiler) host "
-        f"levelling {host_ms:.2f} ms whole call {call_ms:.2f} ms plain loop "
-        f"{plain_ms:.1f} ms byte bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e9:.3f} GB; no single PyTorch call)")
+        f"{len(starts)} segments of {r} rows, {launches} launch per call "
+        f"(trace: {len(kernel)} in {calls} calls, try {tries}); "
+        f"bitwise_equal={equal} "
+        f"max_abs_err={err:.3e}; device time per call (profiler): kernel "
+        f"{ms:.4f} ms ({', '.join(f'{t:.4f}' for t in kernel)}), plan "
+        f"{plan_ms:.4f} ms in {len(plan) / calls:g} "
+        f"kernels, starts to the device {copy_ms:.4f} ms; whole call "
+        f"{call_ms:.3f} ms (host clock, median of 10); plain loop "
+        f"{plain_ms:.1f} ms; byte bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f}"
+        f" GB), {bound_ms / ms:.1%} of it; no single PyTorch call")
     check(equal, f"row blend {label}: kernel differs from the plain loop")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=None), launches
+                bound_by="bytes", library_ms=None,
+                share_of_bound=bound_ms / ms, plan_ms=plan_ms,
+                copy_ms=copy_ms, call_ms=call_ms), launches
 
 
 def phase_rows():
-    """Row blend vs its plain loop at the evaluation slice's geometry and
-    at a ragged one."""
+    """Row blend vs its plain loop at the evaluation slice's geometry, at a
+    ragged one, with segments longer than 256 rows and 10 channels (two
+    passes of the kernel's 8), and with no segments."""
     from vnet_tpu_torch.infer.sliding_window import cosine_window
+    from vnet_tpu_torch.ops.blend import blend_accumulate_rows
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     r = SLICE_PATCH[2]
@@ -1083,9 +1160,26 @@ def phase_rows():
     big_r, r_small = 10007, 13
     starts = rng.integers(0, big_r - r_small + 1, size=3000)
     starts[1::7] = starts[::7][:len(starts[1::7])]  # duplicated starts
+    starts[-1] = big_r - r_small  # flush with R
     _rows_case(big_r, 3, starts.astype(np.int32),
                torch.rand((r_small, 1), generator=gen, device="cuda") + 0.5,
                gen, "ragged geometry")
+    big_r, r_long = 20011, 300
+    starts = rng.integers(0, big_r - r_long + 1, size=500)
+    _rows_case(big_r, 10, starts.astype(np.int32),
+               torch.rand((r_long, 1), generator=gen, device="cuda") + 0.5,
+               gen, "segments of 300 rows, 10 channels")
+    acc = torch.rand((64, 3), generator=gen, device="cuda")
+    before = acc.clone()
+    reset_counts()
+    blend_accumulate_rows(acc, torch.zeros((64, 1), device="cuda"),
+                          torch.zeros((0, 8, 3), device="cuda"),
+                          torch.ones((8, 1), device="cuda"),
+                          torch.zeros(0, dtype=torch.int32))
+    none = read_counts()["blend_rows"]
+    say(f"[11] no segments: {none} launches, acc unchanged="
+        f"{torch.equal(acc, before)}")
+    check(none == 0 and torch.equal(acc, before), "no segments launched")
     return result, launches
 
 

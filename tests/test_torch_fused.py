@@ -7,10 +7,11 @@ same seeded numpy inputs. Tolerances: float32 sums at ``rtol = 1e-5`` (and
 ``atol = 1e-5 * sum|terms|`` per channel, for sums near zero); the float32
 tail at ``rtol = 1e-6``; the bfloat16 tail within one bf16 ulp of its
 operands or ``rtol = 1e-2`` (XLA may keep bf16 intermediates in float32).
-The row blend's overlap levels are checked against a naive loop, and
-replaying the segments level by level must equal the sequential loop
-bitwise. The CUDA kernels are held against the plain versions on the card
-(``cuda`` tests below and ``chip_smoke.py`` phases 9-11).
+The row blend's tile plan is checked against a naive planner, and
+replaying the segments in the kernel's order (tile by tile, each row's
+segments in index order) must equal the sequential loop bitwise. The CUDA
+kernels are held against the plain versions on the card (``cuda`` tests
+below and ``chip_smoke.py`` phases 9-11).
 """
 
 import jax.numpy as jnp
@@ -24,8 +25,8 @@ from vnet_tpu.ops.pallas.fused import bn_grad_stats as jax_grad_stats
 from vnet_tpu.ops.pallas.fused import bn_stats as jax_stats
 from vnet_tpu_torch.ops import blend, build, fused
 from vnet_tpu_torch.ops.blend import (blend_accumulate_rows,
-                                      blend_accumulate_rows_plain, plan_rows,
-                                      row_levels)
+                                      blend_accumulate_rows_plain,
+                                      plan_row_tiles, row_tile)
 from vnet_tpu_torch.ops.fused import (bn_grad_stats, bn_grad_stats_plain,
                                       bn_stats, bn_stats_plain,
                                       fused_bias_prelu_residual,
@@ -249,50 +250,74 @@ def test_rows_plain_matches_jax_interpret(name, rng):
     np.testing.assert_allclose(out_w.numpy(), np.asarray(ref_w), rtol=1e-5)
 
 
-def _naive_levels(starts, r):
-    level = np.zeros(len(starts), np.int64)
-    for i, s in enumerate(starts):
-        level[i] = 1 + max((level[j] for j in range(i)
-                            if abs(int(s) - int(starts[j])) < r), default=0)
-    return level
+def _naive_tiles(starts, r, tile, num_rows):
+    return [[i for i, s in enumerate(starts)
+             if s < (t + 1) * tile and s + r > t * tile]
+            for t in range(-(-num_rows // tile))]
+
+
+def _tile_lists(tile_ptr, seg_idx):
+    ptr = tile_ptr.tolist()
+    return [seg_idx[lo:hi].tolist() for lo, hi in zip(ptr[:-1], ptr[1:])]
 
 
 @pytest.mark.parametrize("seed,n,span,r", [(0, 200, 50, 7), (1, 300, 1000, 5),
                                             (2, 64, 4, 3), (3, 1, 10, 4),
-                                            (4, 40, 400, 1)])
-def test_row_levels_match_naive_loop(seed, n, span, r):
-    starts = np.random.default_rng(seed).integers(0, span, size=n)
-    np.testing.assert_array_equal(row_levels(starts, r),
-                                  _naive_levels(starts, r))
+                                            (4, 40, 400, 1),
+                                            (5, 50, 2000, 300)])
+def test_row_tile_plan_matches_naive_planner(seed, n, span, r):
+    """Each tile lists the segments that meet it in increasing index, at
+    the kernel's tile (a segment of r > 256 rows grows it) and at a tile
+    as short as the segments, where most segments meet two tiles."""
+    starts = np.random.default_rng(seed).integers(0, span, size=n).astype(
+        np.int32)
+    num_rows = span + r
+    for tile in (row_tile(r), max(r, 8)):
+        tile_ptr, seg_idx = plan_row_tiles(torch.from_numpy(starts), r, tile,
+                                           num_rows)
+        assert tile_ptr.dtype == seg_idx.dtype == torch.int32
+        assert _tile_lists(tile_ptr, seg_idx) == _naive_tiles(
+            starts, r, tile, num_rows)
 
 
-def test_row_levels_of_no_segments():
-    assert row_levels(np.zeros(0, np.int32), 4).shape == (0,)
+def test_row_tile_grows_with_the_segments():
+    assert [row_tile(r) for r in (1, 32, 256, 257, 300, 1000, 1025)] == [
+        256, 256, 256, 512, 512, 1024, 2048]
+    with pytest.raises(ValueError, match="shorter than the segments"):
+        plan_row_tiles(torch.zeros(1, dtype=torch.int32), 300, 256, 400)
 
 
+def test_row_tile_plan_of_no_segments():
+    tile_ptr, seg_idx = plan_row_tiles(torch.zeros(0, dtype=torch.int32), 4,
+                                       256, 600)
+    assert tile_ptr.tolist() == [0, 0, 0, 0] and seg_idx.numel() == 0
+
+
+@pytest.mark.parametrize("tile", ["kernel", "short"])
 @pytest.mark.parametrize("name", sorted(ROW_CASES))
-def test_level_replay_equals_sequential_loop(name, rng):
-    """What the kernel does, on the CPU: the segments level by level (each
-    level in reverse, to show order inside a level does not matter) give the
+def test_tile_replay_equals_sequential_loop(name, tile, rng):
+    """What the kernel does, on the CPU: tile by tile, each row adds the
+    segments of its tile's list that cover it, in list order, one float32
+    rounding after the product and one after the sum; that gives the
     sequential loop's bits."""
     acc, weight, probs, window, starts = _row_inputs(rng, *ROW_CASES[name])
     r = probs.shape[1]
-    order, bounds = plan_rows(starts, r)
-    assert bounds[0] == 0 and bounds[-1] == len(starts)
+    size = row_tile(r) if tile == "kernel" else r + 1
     exp_acc, exp_w = acc.copy(), weight.copy()
     blend_accumulate_rows_plain(torch.from_numpy(exp_acc),
                                 torch.from_numpy(exp_w),
                                 torch.from_numpy(probs),
                                 torch.from_numpy(window),
                                 torch.from_numpy(starts))
-    for lo, hi in zip(bounds[:-1], bounds[1:]):
-        level = order[lo:hi][::-1]
-        s = starts[level]
-        assert np.all(np.abs(s[:, None] - s[None, :])[~np.eye(len(s),
-                      dtype=bool)] >= r)  # no two of a level overlap
-        for i in level:
-            acc[starts[i]:starts[i] + r] += probs[i] * window
-            weight[starts[i]:starts[i] + r] += window
+    tile_ptr, seg_idx = plan_row_tiles(torch.from_numpy(starts), r, size,
+                                       acc.shape[0])
+    for t, segs in enumerate(_tile_lists(tile_ptr, seg_idx)):
+        for row in range(t * size, min((t + 1) * size, acc.shape[0])):
+            for i in segs:
+                o = row - starts[i]
+                if 0 <= o < r:
+                    acc[row] += probs[i, o] * window[o]
+                    weight[row] += window[o]
     np.testing.assert_array_equal(acc, exp_acc)
     np.testing.assert_array_equal(weight, exp_w)
 
@@ -376,9 +401,44 @@ def test_rows_kernel_equals_plain_on_card(name, rng, cuda_device):
     blend_accumulate_rows(*dev, st)
     blend_accumulate_rows_plain(ref_acc, ref_w, dev[2], dev[3], st)
     torch.cuda.synchronize()
-    depth = int(row_levels(starts, probs.shape[1]).max())
-    assert blend_accumulate_rows.launches == before + depth
+    assert blend_accumulate_rows.launches == before + 1  # any overlap depth
     assert torch.equal(dev[0], ref_acc) and torch.equal(dev[1], ref_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,c", [(300, 3), (300, 10), (1000, 2)])
+def test_rows_kernel_long_segments_on_card(r, c, rng, cuda_device):
+    """Segments longer than 256 rows (the tile grows past the block) and
+    more channels than one pass holds, with duplicated starts and one
+    segment flush with R."""
+    big_r = 5 * r + 17
+    starts = rng.integers(0, big_r - r + 1, size=40)
+    starts[1::3] = starts[0]
+    starts[-1] = big_r - r
+    acc, weight, probs, window, starts = _row_inputs(rng, big_r, c, r,
+                                                     starts)
+    dev = [torch.from_numpy(a).to(cuda_device)
+           for a in (acc, weight, probs, window)]
+    ref_acc, ref_w = dev[0].clone(), dev[1].clone()
+    st = torch.from_numpy(starts)
+    before = blend_accumulate_rows.launches
+    blend_accumulate_rows(*dev, st)
+    blend_accumulate_rows_plain(ref_acc, ref_w, dev[2], dev[3], st)
+    torch.cuda.synchronize()
+    assert blend_accumulate_rows.launches == before + 1
+    assert torch.equal(dev[0], ref_acc) and torch.equal(dev[1], ref_w)
+
+
+@pytest.mark.cuda
+def test_rows_kernel_no_segments_launches_nothing(cuda_device):
+    acc = torch.ones((64, 3), device=cuda_device)
+    before = blend_accumulate_rows.launches
+    blend_accumulate_rows(acc, torch.ones((64, 1), device=cuda_device),
+                          torch.ones((0, 8, 3), device=cuda_device),
+                          torch.ones((8, 1), device=cuda_device),
+                          torch.zeros(0, dtype=torch.int32))
+    assert blend_accumulate_rows.launches == before
+    assert bool((acc == 1).all())
 
 
 @pytest.mark.cuda
@@ -389,7 +449,8 @@ def test_cuda_tensor_raises_when_the_library_cannot_load(monkeypatch,
         raise build.KernelBuildError(f"refused to build {name}")
 
     monkeypatch.setattr(build, "load", refuse)
-    cached = (fused._lib, fused._tail_kernel, blend._rows_kernel)
+    cached = (fused._lib, fused._tail_kernel, blend._rows_kernel,
+              blend._kernel)
     for fn in cached:
         fn.cache_clear()
     x = torch.ones((4, 8), device=cuda_device)
@@ -404,6 +465,11 @@ def test_cuda_tensor_raises_when_the_library_cannot_load(monkeypatch,
         with pytest.raises(build.KernelBuildError):
             blend_accumulate_rows(x, v.reshape(8, 1)[:4], x[None], v[:4, None],
                                   torch.zeros(1, dtype=torch.int32))
+        acc = torch.ones((4, 4, 4, 2), device=cuda_device)
+        with pytest.raises(build.KernelBuildError):
+            blend.blend_accumulate_patches(
+                acc, acc[None, :2, :2, :2].contiguous(),
+                torch.zeros((1, 3), dtype=torch.int32))
     finally:
         for fn in cached:
             fn.cache_clear()

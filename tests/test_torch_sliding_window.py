@@ -77,6 +77,16 @@ def test_sliding_window_matches_jax(gaussian, hard, jax_impl, rng):
 
 def test_volume_smaller_than_patch_raises():
     engine = tsw.SlidingWindowInference(lambda p: p, PATCH, STRIDE, BATCH,
-                                        CLASSES)
+                                        CLASSES, device="cpu")
     with pytest.raises(ValueError, match="smaller than patch"):
         engine(np.zeros((7, 8, 6, 1), np.float32))
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    """Like every entry point of the port, the engine runs on the card
+    unless the caller asks for the CPU: no silent fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("torch sees a CUDA card, so the default resolves")
+    with pytest.raises(RuntimeError, match="torch sees no CUDA device"):
+        tsw.SlidingWindowInference(lambda p: p, PATCH, STRIDE, BATCH,
+                                   CLASSES)

@@ -28,6 +28,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.blend import blend_accumulate_patches, blend_accumulate_plain
 
 
@@ -80,13 +81,14 @@ class SlidingWindowInference:
         channel 0 of the returned accumulator.
       blend_impl: ``"auto"``, ``"pallas"`` (the blend kernel) or ``"xla"``
         (plain slice-adds).
-      device: where the volume, the accumulators and the network run.
+      device: where the volume, the accumulators and the network run;
+        ``"cuda"`` by default, which raises where torch sees no card.
     """
 
     def __init__(self, apply_fn: Callable, patch_shape: Sequence[int],
                  stride: Sequence[int], batch_size: int, num_classes: int,
                  gaussian_blend: bool = False, hard_accumulate: bool = False,
-                 blend_impl: str = "auto", device="cpu"):
+                 blend_impl: str = "auto", device="cuda"):
         self.apply_fn = apply_fn
         self.patch_shape = tuple(int(p) for p in patch_shape)
         self.stride = tuple(int(s) for s in stride)
@@ -100,7 +102,7 @@ class SlidingWindowInference:
             raise ValueError(f"blend_impl must be 'auto'|'pallas'|'xla', "
                              f"got {blend_impl!r}")
         self.use_kernel = blend_impl in ("auto", "pallas")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.blend_window = (cosine_window(self.patch_shape)
                              if gaussian_blend else
                              np.ones(self.patch_shape, np.float32))

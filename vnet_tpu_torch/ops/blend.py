@@ -10,8 +10,9 @@ takes any start (``csrc/blend_accumulate.cu``).
 ``blend_accumulate_rows`` is the counterpart of ``::blend_accumulate_rows``,
 the 1D building block: ``acc[s_i : s_i + r] += probs[i] * window`` and
 ``weight[s_i : s_i + r] += window`` for segments i in order, in place. Its
-kernel (``csrc/blend_rows.cu``) runs one launch per overlap level
-(:func:`row_levels`), so overlapping segments add in segment order.
+kernel (``csrc/blend_rows.cu``) owns rows tile by tile and walks each tile's
+segments in index order (:func:`plan_row_tiles`, built on the device), so
+overlapping segments add in segment order in one launch.
 
 Each wrapper launches its kernel for CUDA tensors and uses its plain version
 only for CPU tensors; a CUDA tensor never falls back. Each wrapper's
@@ -24,12 +25,12 @@ import ctypes
 import functools
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from . import build
 
 MAX_PATCHES_PER_LAUNCH = 256  # VNET_BLEND_MAX_PATCHES in the .cu source
+ROW_BLOCK = 256  # VNET_ROWS_THREADS in csrc/blend_rows.cu
 
 
 def blend_accumulate_plain(acc: torch.Tensor, contrib: torch.Tensor,
@@ -73,7 +74,7 @@ def _check(acc, contrib, starts):
 def _kernel():
     fn = build.load("blend_accumulate").lib.vnet_blend_accumulate
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -81,14 +82,17 @@ def _kernel():
 def _launch(acc, contrib, starts):
     fn = _kernel()
     starts = starts.contiguous()
+    width = ctypes.c_int(0)
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         err = fn(acc.data_ptr(), contrib.data_ptr(), starts.data_ptr(),
-                 contrib.shape[0], *acc.shape, *contrib.shape[1:4], stream)
+                 contrib.shape[0], *acc.shape, *contrib.shape[1:4],
+                 ctypes.byref(width), stream)
     if err != 0:
         raise RuntimeError(f"blend_accumulate launch failed: CUDA error "
                            f"{err}")
     blend_accumulate_patches.launches += 1
+    blend_accumulate_patches.last_width = width.value
 
 
 def blend_accumulate_patches(acc: torch.Tensor, contrib: torch.Tensor,
@@ -101,7 +105,8 @@ def blend_accumulate_patches(acc: torch.Tensor, contrib: torch.Tensor,
       starts: ``(B, 3)`` int32 patch corners on the CPU (launch metadata,
         passed to the kernel by value); any value inside the volume.
     Returns ``acc``. More than ``MAX_PATCHES_PER_LAUNCH`` patches take
-    several launches, in order.
+    several launches, in order. ``.last_width`` is the floats per element
+    of the last launch: 4 on the kernel's float4 path, 1 on its float path.
     """
     _check(acc, contrib, starts)
     if acc.device.type == "cpu":
@@ -115,6 +120,7 @@ def blend_accumulate_patches(acc: torch.Tensor, contrib: torch.Tensor,
 
 
 blend_accumulate_patches.launches = 0
+blend_accumulate_patches.last_width = 0
 
 
 def blend_accumulate_rows_plain(acc: torch.Tensor, weight: torch.Tensor,
@@ -127,54 +133,6 @@ def blend_accumulate_rows_plain(acc: torch.Tensor, weight: torch.Tensor,
         acc[s:s + r] += probs[i] * window
         weight[s:s + r] += window
     return acc, weight
-
-
-def row_levels(row_starts, rows: int) -> np.ndarray:
-    """Overlap level of each segment of ``rows`` rows, int64, from 1:
-    ``1 + max(level of the earlier segments overlapping it)``.
-
-    Segments i and j overlap iff ``|s_i - s_j| < rows``. The overlapping
-    pairs come from the starts in sorted order (each start against its
-    followers until one lies ``rows`` away); the levels are the longest
-    paths of the pairs oriented by index, relaxed until nothing grows (as
-    many rounds as the deepest chain)."""
-    s = np.asarray(row_starts, np.int64).reshape(-1)
-    level = np.ones(s.size, np.int64)
-    order = np.argsort(s, kind="stable")
-    ss = s[order]
-    src, dst = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
-    cand = np.arange(max(s.size - 1, 0))
-    d = 1
-    while cand.size:
-        cand = cand[cand + d < s.size]
-        cand = cand[ss[cand + d] - ss[cand] < rows]
-        a, b = order[cand], order[cand + d]
-        src.append(np.minimum(a, b))
-        dst.append(np.maximum(a, b))
-        d += 1
-    src, dst = np.concatenate(src), np.concatenate(dst)
-    if not src.size:
-        return level
-    by_dst = np.argsort(dst, kind="stable")
-    src, dst = src[by_dst], dst[by_dst]
-    targets, first = np.unique(dst, return_index=True)
-    while True:
-        new = np.maximum.reduceat(level[src], first) + 1
-        grow = new > level[targets]
-        if not grow.any():
-            return level
-        level[targets[grow]] = new[grow]
-
-
-def plan_rows(row_starts, rows: int) -> Tuple[np.ndarray, Tuple[int, ...]]:
-    """Launch plan of :func:`blend_accumulate_rows`, on the host:
-    ``(order, bounds)``, the segment indices sorted by level (int32) and
-    level ``k``'s slice ``order[bounds[k] : bounds[k + 1]]``."""
-    levels = row_levels(row_starts, rows)
-    order = np.argsort(levels, kind="stable").astype(np.int32)
-    depth = int(levels.max()) if levels.size else 0
-    bounds = np.searchsorted(levels[order], np.arange(1, depth + 2))
-    return order, tuple(int(b) for b in bounds)
 
 
 def _check_rows(acc, weight, probs, window, row_starts):
@@ -206,10 +164,48 @@ def _check_rows(acc, weight, probs, window, row_starts):
                          f"segments of {r}")
 
 
+def row_tile(rows: int) -> int:
+    """Rows per tile of the row blend: a power of two, at least the
+    kernel's block of 256 threads and at least ``rows``, so that a segment
+    meets at most two tiles."""
+    return max(ROW_BLOCK, 1 << (rows - 1).bit_length())
+
+
+def plan_row_tiles(row_starts: torch.Tensor, rows: int, tile: int,
+                   num_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment lists of the row tiles, as a CSR on ``row_starts``' device.
+
+    Tile ``t`` holds rows ``[t * tile, (t + 1) * tile)`` of ``num_rows``;
+    its list is ``seg_idx[tile_ptr[t] : tile_ptr[t + 1]]``, the segments of
+    ``rows`` rows with ``s_i < (t + 1) * tile`` and ``s_i + rows > t *
+    tile``, in increasing index. Returns ``(tile_ptr, seg_idx)``, int32;
+    ``seg_idx`` may run on past ``tile_ptr[-1]`` with entries of no tile.
+
+    Needs ``tile >= rows``: each segment then meets its first tile and at
+    most one more. The (tile, index) keys are emitted in index order and
+    sorted stably by tile, so each list keeps index order; a segment inside
+    one tile gives its second key the tile count, which sorts past every
+    list. Index bookkeeping only: it runs wherever the starts are, without
+    a synchronisation.
+    """
+    if tile < rows:
+        raise ValueError(f"tile {tile} shorter than the segments ({rows})")
+    num_tiles = -(-num_rows // tile)
+    first = torch.div(row_starts, tile, rounding_mode="floor")
+    last = torch.div(row_starts + (rows - 1), tile, rounding_mode="floor")
+    last = torch.where(last == first, num_tiles, last)
+    keys, order = torch.sort(torch.stack((first, last), 1).reshape(-1),
+                             stable=True)
+    bounds = torch.arange(num_tiles + 1, dtype=keys.dtype,
+                          device=keys.device)
+    tile_ptr = torch.searchsorted(keys, bounds, out_int32=True)
+    return tile_ptr, torch.div(order, 2, rounding_mode="floor").int()
+
+
 @functools.cache
 def _rows_kernel():
     fn = build.load("blend_rows").lib.vnet_blend_rows
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -229,9 +225,10 @@ def blend_accumulate_rows(acc: torch.Tensor, weight: torch.Tensor,
       window: ``(r, 1)`` float32 blend weight.
       row_starts: ``(N,)`` int32 row offsets on the CPU (launch metadata).
       interpret: the Mosaic flag, ignored.
-    Returns ``(acc, weight)``. CUDA tensors level ``row_starts`` on the host
-    (:func:`plan_rows`) and launch ``csrc/blend_rows.cu`` once per overlap
-    level; CPU tensors take :func:`blend_accumulate_rows_plain`.
+    Returns ``(acc, weight)``. CUDA tensors copy ``row_starts`` to the
+    device, plan the row tiles there (:func:`plan_row_tiles`) and launch
+    ``csrc/blend_rows.cu`` once (no segments: no launch); CPU tensors take
+    :func:`blend_accumulate_rows_plain`.
     """
     del interpret  # Mosaic flag
     _check_rows(acc, weight, probs, window, row_starts)
@@ -240,21 +237,26 @@ def blend_accumulate_rows(acc: torch.Tensor, weight: torch.Tensor,
                                            row_starts)
     if acc.device.type != "cuda":
         raise ValueError(f"unsupported device {acc.device}")
-    _, r, c = probs.shape
-    order, bounds = plan_rows(row_starts.numpy(), r)
-    order = torch.from_numpy(order).to(acc.device)
-    starts = row_starts.to(acc.device)
+    n, r, c = probs.shape
+    big_r = acc.shape[0]
+    tile = row_tile(r)
+    num_tiles = -(-big_r // tile)
+    if num_tiles * tile > 2 ** 31 - 1:
+        raise ValueError(f"{big_r} rows: the row blend indexes rows with "
+                         f"32-bit integers")
+    if n == 0:
+        return acc, weight
     fn = _rows_kernel()
+    starts = row_starts.to(acc.device)
+    tile_ptr, seg_idx = plan_row_tiles(starts, r, tile, big_r)
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
-            err = fn(acc.data_ptr(), weight.data_ptr(), probs.data_ptr(),
-                     window.data_ptr(), order.data_ptr() + 4 * lo,
-                     starts.data_ptr(), hi - lo, r, c, stream)
-            if err != 0:
-                raise RuntimeError(f"blend_rows launch failed: CUDA error "
-                                   f"{err}")
-            blend_accumulate_rows.launches += 1
+        err = fn(acc.data_ptr(), weight.data_ptr(), probs.data_ptr(),
+                 window.data_ptr(), starts.data_ptr(), tile_ptr.data_ptr(),
+                 seg_idx.data_ptr(), num_tiles, tile, r, c, stream)
+    if err != 0:
+        raise RuntimeError(f"blend_rows launch failed: CUDA error {err}")
+    blend_accumulate_rows.launches += 1
     return acc, weight
 
 
