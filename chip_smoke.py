@@ -36,7 +36,11 @@ non-zero before the result line:
    channels-last, the main path's largest dropout, for ``pallas`` and
    ``bits8`` at the config's rate 0.01: bitwise equal, keep fraction within
    5 sigma, backward mask = forward mask for a gradient that is not
-   channels-last; kernel, plain and ``F.dropout`` times;
+   channels-last; kernel, plain and ``F.dropout`` times. Then the ``xla``
+   flavour (flax's ``x / keep_prob``, every shipped config's) at that shape,
+   at the attention heads' (8, 64, 64, 64, 64) bf16 and at a ragged,
+   unaligned f32 length: kernel bitwise equal to plain, survivors equal to
+   ``x / keep_d`` rounded once (``keep_d``: 0.99 rounded to the dtype);
 6. dW kernel vs its plain version at the ten distinct stride-1 weight
    gradients of the flagship step, batch 96 bf16 (16->16 and 32->16 at
    64^3, 32->32 and 64->32 at 32^3, 64->64 and 128->64 at 16^3, 128->128
@@ -86,6 +90,28 @@ non-zero before the result line:
    of the starts' copy, then the whole call (host clock) and the plain
    loop; no segments launch nothing.
 
+12. (run right after phase 1) the ``cuda``-marked tests
+   (``tests/test_torch_cuda_*.py``, JAX-free) in a subprocess, ``python -m
+   pytest --noconftest -m cuda``: none may fail and more than none must
+   pass;
+13. the attention-gated training step at
+   ``configs/config_attention_multimodal.json``'s width (16 channels, 4
+   levels, attention heads of 64 channels, 2 modalities, 2 classes, batch
+   8, 64^3, bf16, mixed Sorensen plus the l2 attention loss x100, Adam)
+   through ``Trainer.train_step`` on random images, labels and distance
+   maps from seed 0: median step time over 6 steps after 2 warm-ups,
+   patches/s, peak memory, finite losses with ``attention_loss``, and the
+   dropout launches per step that the module tree implies (21 backbone and
+   12 head layers, forward and backward);
+14. the attention CLI path: ``main(["-p", "train", ..., "--profile_dir",
+   d])`` for 4 steps at batch 4 and 64^3 from that config with ``ImageLog``,
+   ``DeviceAugment`` and ``Testing`` on, on synthetic two-modality cases,
+   then ``-p evaluate``: the TensorBoard event files decode with the port's
+   reader (CRCs hold), their scalar tags equal ``scalars.jsonl``'s, image
+   records hold PNGs, ``network_config.json`` has the JAX trainer's keys,
+   the trace file exists, and evaluation launched the blend kernel and wrote
+   labels in {0, 1}.
+
 No entry point reaches the kernels of phases 9-11 (as in the JAX package);
 their launches in the ``kernels`` line are the counts of their own phase.
 The last lines are a JSON object describing each kernel, the card's name
@@ -111,6 +137,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EVAL_CONFIG = os.path.join(ROOT, "configs", "config_eval_gaussian.json")
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "config.json")
+ATTENTION_CONFIG = os.path.join(ROOT, "configs",
+                                "config_attention_multimodal.json")
 KERNELS = ("blend_accumulate", "dropout", "dw_conv", "bn_stats",
            "bias_prelu_residual", "blend_rows")
 SLICE_VOLUME = (384, 384, 64)
@@ -139,6 +167,9 @@ BF16_FLOPS = 989e12
 TRAIN_PATCH = (64, 64, 64)
 TRAIN_CASE = (96, 96, 80)
 FLAGSHIP_BATCH = 96
+ATT_BATCH = 8  # config_attention_multimodal.json's BatchSize
+ATT_CHANNELS = 64  # the attention heads' width
+ATT_STEPS, ATT_WARMUP = 6, 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -186,7 +217,7 @@ def phase_device_and_build():
         f"{torch.version.cuda}")
     say(f"[1] nvidia-smi: {smi}")
     say(f"[1] yaml imports: {has['yaml']}; tensorboardX imports: "
-        f"{has['tensorboardX']} (the port logs scalars as JSON lines)")
+        f"{has['tensorboardX']} (the port writes its own event files)")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
         built = list(pool.map(build.load, KERNELS))
@@ -489,9 +520,10 @@ def phase_dropout():
     bound_ms = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3  # read x, write out
     result = {}
     for impl in ("pallas", "bits8"):
-        thr, scale = dropout_params(rate, impl)
-        out_k = dropout_apply(x, seed, stream, thr, scale)
-        out_p = dropout_plain(x, seed, stream, thr, scale)
+        params = dropout_params(rate, impl)
+        thr = params[0]
+        out_k = dropout_apply(x, seed, stream, *params)
+        out_p = dropout_plain(x, seed, stream, *params)
         torch.cuda.synchronize()
         equal = torch.equal(out_k, out_p)
         err = (out_k.float() - out_p.float()).abs().max().item()
@@ -505,9 +537,9 @@ def phase_dropout():
         (dx,) = torch.autograd.grad(y, xr, g)
         same_mask = bool((((dx != 0) == (y != 0)) | ~nonzero).all())
         del xr, y, g, dx
-        ms = time_ms(lambda: dropout_apply(x, seed, stream, thr, scale))
-        plain_ms = time_ms(lambda: dropout_plain(x, seed, stream, thr,
-                                                 scale), reps=3)
+        ms = time_ms(lambda: dropout_apply(x, seed, stream, *params))
+        plain_ms = time_ms(lambda: dropout_plain(x, seed, stream, *params),
+                           reps=3)
         lib_ms = time_ms(lambda: F.dropout(x, rate, training=True))
         say(f"[5] dropout {impl} {tuple(x.shape)} bf16 channels-last: "
             f"bitwise_equal={equal} keep {kept / n:.6f} (p {p:.6f}, "
@@ -521,7 +553,66 @@ def phase_dropout():
         result[impl] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by="bytes",
                             library_ms=lib_ms)
-    return result["pallas"]
+    del x, nonzero
+    torch.cuda.empty_cache()
+    return _dropout_xla(rate, seed, stream, gen)
+
+
+def _dropout_xla(rate, seed, stream, gen):
+    """The ``xla`` flavour: survivors ``x / keep_d`` rounded once, at the
+    backbone's and the attention heads' largest dropouts and at a ragged,
+    unaligned float32 length (the kernel's scalar path)."""
+    import torch.nn.functional as F
+
+    from vnet_tpu_torch.ops.dropout import (dropout_apply, dropout_params,
+                                            dropout_plain)
+
+    params = dropout_params(rate, "xla")
+    thr, keep, divide = params
+    check(divide, "xla dropout does not divide")
+    cl = torch.channels_last_3d
+    cases = [((FLAGSHIP_BATCH, 16) + TRAIN_PATCH, torch.bfloat16),
+             ((ATT_BATCH, ATT_CHANNELS) + TRAIN_PATCH, torch.bfloat16),
+             ((1000003,), torch.float32)]
+    result = None
+    for shape, dtype in cases:
+        if len(shape) == 5:
+            x = (torch.randn(shape, generator=gen, device="cuda") * 30.0).to(
+                dtype).contiguous(memory_format=cl)
+        else:  # one element off 16-byte alignment
+            x = (torch.randn(shape[0] + 1, generator=gen, device="cuda")
+                 * 30.0)[1:]
+        out_k = dropout_apply(x, seed, stream, *params)
+        out_p = dropout_plain(x, seed, stream, *params)
+        torch.cuda.synchronize()
+        equal = torch.equal(out_k, out_p)
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        del out_p
+        keep_d = torch.tensor(keep, dtype=dtype).float().cuda()
+        kept = out_k != 0
+        expect = (x.float() / keep_d).to(dtype)
+        quotient = torch.equal(out_k[kept], expect[kept])
+        share = kept.float().mean().item()
+        del expect, kept, out_k
+        ms = time_ms(lambda: dropout_apply(x, seed, stream, *params))
+        plain_ms = time_ms(lambda: dropout_plain(x, seed, stream, *params),
+                           reps=3)
+        lib_ms = time_ms(lambda: F.dropout(x, rate, training=True))
+        bound_ms = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3
+        say(f"[5] dropout xla {shape} {dtype}: bitwise_equal={equal} "
+            f"survivors x / keep_d ({float(keep_d):.8f}) rounded once="
+            f"{quotient}, kept {share:.6f}; kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms F.dropout {lib_ms:.4f} ms byte bound "
+            f"{bound_ms:.4f} ms")
+        check(equal, f"dropout xla {shape}: kernel differs from plain")
+        check(quotient, f"dropout xla {shape}: survivors != x / keep_d")
+        if result is None:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by="bytes",
+                          library_ms=lib_ms)
+        del x
+        torch.cuda.empty_cache()
+    return result
 
 
 DW_SHAPES = (  # (Ci, Co, side, k, launches per step) at batch 96: the ten
@@ -1183,6 +1274,265 @@ def phase_rows():
     return result, launches
 
 
+def phase_cuda_tests():
+    """The ``cuda``-marked tests in a subprocess, without ``conftest.py``
+    (it imports JAX, which this machine need not have)."""
+    import glob
+    import re
+
+    files = sorted(glob.glob(os.path.join(ROOT, "tests",
+                                          "test_torch_cuda_*.py")))
+    check(len(files) >= 5, f"cuda test modules: {files}")
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+           "-q", "-p", "no:cacheprovider", *files]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-15:]
+    counts = {k: int(n) for n, k in re.findall(
+        r"(\d+) (passed|failed|skipped|error|errors)", "\n".join(tail))}
+    passed = counts.get("passed", 0)
+    say(f"[12] cuda-marked tests ({len(files)} modules, pytest --noconftest "
+        f"-m cuda): exit {proc.returncode}, {counts} in {wall:.1f} s")
+    if proc.returncode != 0 or passed == 0:
+        for line in tail:
+            say(f"[12]   {line}")
+    check(proc.returncode == 0, "a cuda-marked test failed")
+    check(passed > 0, "no cuda-marked test passed")
+    return passed
+
+
+def _attention_config(tmp, **setting):
+    """``config_attention_multimodal.json`` with its directories under
+    ``tmp``, the shipped liver pipeline and ``setting`` applied."""
+    with open(ATTENTION_CONFIG) as f:
+        cfg = json.load(f)
+    ts, es = cfg["TrainingSetting"], cfg["EvaluationSetting"]
+    pipeline = os.path.join(ROOT, "pipeline", "pipeline_liver3D.yaml")
+    ts["Data"]["TrainingDataDirectory"] = os.path.join(tmp, "training")
+    ts["Data"]["TestingDataDirectory"] = os.path.join(tmp, "training")
+    ts.update(LogDir=os.path.join(tmp, "log"),
+              CheckpointDir=os.path.join(tmp, "ckpt"), Pipeline=pipeline,
+              Restore=False, **setting)
+    es.update(CheckpointPath=ts["CheckpointDir"], Pipeline=pipeline)
+    es["Data"]["EvaluateDataDirectory"] = os.path.join(tmp, "evaluate")
+    path = os.path.join(tmp, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path, cfg
+
+
+def phase_attention_step():
+    """The attention-gated training step at the shipped config's width,
+    through ``Trainer.train_step`` (host arrays in, as the loop feeds it)."""
+    from vnet_tpu_torch.config import load_config
+    from vnet_tpu_torch.train import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_att_")
+    try:
+        path, cfg = _attention_config(tmp)
+        trainer = Trainer(load_config(path), device="cuda", log=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    net = trainer.network
+    ts = cfg["TrainingSetting"]
+    check(type(net).__name__ == "AttentionGatedVNet", type(net).__name__)
+    check(ts["BatchSize"] == ATT_BATCH and tuple(ts["PatchShape"])
+          == TRAIN_PATCH, "the attention config's batch or patch changed")
+    n_drop, n_vnet = len(net.dropouts), len(net.vnet.dropouts)
+    check(n_vnet == 21 and n_drop - n_vnet == 12,
+          f"module tree: {n_vnet} backbone and {n_drop - n_vnet} head "
+          f"dropout layers")
+    rng = np.random.default_rng(SEED)
+    shape = (ATT_BATCH,) + TRAIN_PATCH
+    images = rng.normal(0.0, 1.0, size=shape + (2,)).astype(np.float32)
+    labels = (rng.random(shape) > 0.7).astype(np.int32)
+    dmaps = rng.random(shape).astype(np.float32)
+    state = trainer.init_state()
+    times, losses, att_losses = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(ATT_WARMUP + ATT_STEPS):
+        if i == ATT_WARMUP:
+            reset_counts()
+        t0 = time.perf_counter()
+        out = trainer.train_step(state, images, labels, 1000 + i, dmaps)
+        losses.append(float(out.loss))  # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+        att_losses.append(float(out.aux["attention_loss"]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times[ATT_WARMUP:])
+    per_step = counts["dropout"] / ATT_STEPS
+    say(f"[13] attention step (config_attention_multimodal.json: 16 ch, 4 "
+        f"levels, heads of {ATT_CHANNELS} ch, 2 modalities, batch "
+        f"{ATT_BATCH}, 64^3, bf16, DropoutImpl xla): median {ms:.1f} ms per "
+        f"step over {ATT_STEPS} after {ATT_WARMUP} warm-ups (host clock to "
+        f"the loss on the host; steps {', '.join(f'{t:.1f}' for t in times)}"
+        f"), {ATT_BATCH / ms * 1e3:.1f} patches/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; losses {losses}; attention losses "
+        f"{att_losses}; dropout launches per step {per_step:g} (expected "
+        f"2 x ({n_vnet} + {n_drop - n_vnet})), other launches {counts}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(att_losses)),
+          "non-finite attention step losses")
+    check(per_step == 2 * n_drop, f"dropout launches {per_step} per step, "
+                                  f"expected {2 * n_drop}")
+    check(counts["dropout"] == sum(counts.values()),
+          f"the attention step launched other kernels: {counts}")
+    del trainer, state, net
+    torch.cuda.empty_cache()
+    return counts["dropout"], ms, peak
+
+
+def _two_modality_case(rng):
+    img, label = _train_case(rng)
+    t2 = (200.0 - img + rng.normal(0.0, 5.0, size=img.shape)).astype(
+        np.float32)
+    return img, t2, label
+
+
+def _held_blend(checked):
+    """A stand-in for the sliding window's blend: the kernel on the batch,
+    then the plain slice-adds on a copy of the accumulator from before it;
+    appends ``(bitwise equal, max abs err, width taken, width expected,
+    contrib shape)`` to ``checked`` per call. The float4 path needs
+    VZ·C, PZ·C and every sz·C to be multiples of 4 (csrc)."""
+    from vnet_tpu_torch.ops.blend import (blend_accumulate_patches,
+                                          blend_accumulate_plain)
+
+    def blend(acc, contrib, starts):
+        before = acc.clone()
+        blend_accumulate_patches(acc, contrib, starts)
+        width = blend_accumulate_patches.last_width
+        ref = blend_accumulate_plain(before, contrib, starts)
+        c = acc.shape[-1]
+        vec = all(n * c % 4 == 0 for n in
+                  [acc.shape[2], contrib.shape[3]] + starts[:, 2].tolist())
+        checked.append((torch.equal(acc, ref),
+                        (acc - ref).abs().max().item(), width,
+                        4 if vec else 1, tuple(contrib.shape)))
+        return acc
+
+    return blend
+
+
+def phase_attention_cli(tmp):
+    """The attention config's CLI path with ImageLog, DeviceAugment,
+    Testing and a trace, then evaluation of its checkpoint, its every
+    blend held bitwise against the plain slice-adds."""
+    from vnet_tpu_torch.__main__ import main
+    from vnet_tpu_torch.infer import sliding_window
+    from vnet_tpu_torch.io import MedicalImage, read_image, write_image
+    from vnet_tpu_torch.train.events import (PNG_SIGNATURE, event_files,
+                                             read_events)
+
+    steps = 4
+    path, cfg = _attention_config(
+        tmp, BatchSize=4, MaxIterations=steps, LogInterval=2, TestStep=2,
+        ImageLog=True, DeviceAugment=True, Testing=True)
+    ts = cfg["TrainingSetting"]
+    names = ts["Data"]["ImageFilenames"]
+    rng = np.random.default_rng(SEED)
+    for split, n in (("training", 4), ("evaluate", 2)):
+        for i in range(n):
+            img, t2, label = _two_modality_case(rng)
+            case_dir = os.path.join(tmp, split, f"case_{i}")
+            os.makedirs(case_dir)
+            for name, vol in zip(names, (img, t2)):
+                write_image(MedicalImage(vol, (0.75,) * 3),
+                            os.path.join(case_dir, name))
+            if split == "training":
+                write_image(MedicalImage(label.clip(0, 1), (0.75,) * 3),
+                            os.path.join(case_dir, "label.nii"))
+    trace_dir = os.path.join(tmp, "trace")
+    reset_counts()
+    t0 = time.perf_counter()
+    state = main(["-p", "train", "--config_json", path, "--device", "cuda",
+                  "--profile_dir", trace_dir])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    check(state.step == steps, f"trained {state.step} steps")
+    traces = [n for n in os.listdir(trace_dir) if n.endswith(".json")]
+    check(len(traces) == 1, f"trace files {traces}")
+    trace_mb = os.path.getsize(os.path.join(trace_dir, traces[0])) / 1e6
+    summary = {}
+    for tag in ("train", "test"):
+        log_dir = os.path.join(ts["LogDir"], tag)
+        files = event_files(log_dir)
+        check(len(files) == 1, f"{tag}: event files {files}")
+        values = [v for e in read_events(files[0]) for v in e["values"]]
+        scalars = {v["tag"] for v in values if "simple_value" in v}
+        images = [v["image"]["encoded"] for v in values if "image" in v]
+        with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+            jsonl = {json.loads(line)["tag"] for line in f}
+        check(scalars == jsonl, f"{tag}: event tags {sorted(scalars)} != "
+                                f"scalars.jsonl tags {sorted(jsonl)}")
+        check(images and all(im.startswith(PNG_SIGNATURE) for im in images),
+              f"{tag}: no PNG image records")
+        summary[tag] = (len(scalars), len(images))
+        if tag == "train":
+            check("loss/attention_loss" in scalars,
+                  "no attention loss logged")
+    with open(os.path.join(ts["CheckpointDir"], "network_config.json")) as f:
+        sidecar = json.load(f)
+    keys = {"Name", "Dropout", "NumChannel", "NumLevels", "NumConvolutions",
+            "BottomConvolutions", "Attention", "Norm", "PackedTargetLanes",
+            "DropoutImpl", "Remat", "DwImpl"}
+    check(set(sidecar["Networks"]) == keys
+          and sidecar["Networks"]["Attention"] is True
+          and {"SegmentationClasses", "PatchShape", "Precision"} <= set(
+              sidecar), f"network_config.json {sidecar}")
+
+    checked = []
+    kernel = sliding_window.blend_accumulate_patches
+    sliding_window.blend_accumulate_patches = _held_blend(checked)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        results = main(["-p", "evaluate", "--config_json", path, "--device",
+                        "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        sliding_window.blend_accumulate_patches = kernel
+    eval_s = time.perf_counter() - t0
+    eval_counts = read_counts()
+    labels = [set(np.unique(read_image(r).data).tolist()) for r in results]
+    say(f"[14] attention CLI: {steps} training steps at batch "
+        f"{ts['BatchSize']} with "
+        f"ImageLog, DeviceAugment, Testing and --profile_dir in "
+        f"{train_s:.1f} s (incl. data loading, image logs, checkpoints, "
+        f"tracing), launches {train_counts}; event files (scalar tags, "
+        f"images) {summary}, CRCs hold, tags equal scalars.jsonl; trace "
+        f"{traces[0]} {trace_mb:.1f} MB; network_config.json keys "
+        f"{sorted(sidecar['Networks'])}; evaluation of {len(results)} "
+        f"cases in {eval_s:.1f} s (incl. the plain blend beside each "
+        f"kernel call), launches {eval_counts}, label values {labels}")
+    say(f"[14] evaluation blends vs the plain slice-adds on the same "
+        f"batches: {len(checked)} calls, contrib shapes "
+        f"{sorted({c[4] for c in checked})}, bitwise equal "
+        f"{sum(c[0] for c in checked)}/{len(checked)}, max abs err "
+        f"{max((c[1] for c in checked), default=float('nan')):.3e}, widths "
+        f"taken {sorted({c[2] for c in checked})} (expected "
+        f"{sorted({c[3] for c in checked})})")
+    check(train_counts["dropout"] == 2 * len(state.network.dropouts) * steps,
+          f"training dropout launches {train_counts['dropout']}")
+    check(len(results) == 2 and all(v <= {0, 1} for v in labels),
+          f"evaluation labels {labels}")
+    check(eval_counts["blend_accumulate"] > 0
+          and eval_counts["blend_accumulate"] == sum(eval_counts.values()),
+          f"evaluation launches {eval_counts}")
+    check(len(checked) == eval_counts["blend_accumulate"],
+          f"{len(checked)} blends held for {eval_counts} launches")
+    check(all(c[0] for c in checked),
+          "an evaluation blend differs from the plain slice-adds")
+    check(all(c[2] == c[3] for c in checked),
+          "an evaluation blend took another float path than its geometry "
+          "implies")
+    return train_counts["dropout"]
+
+
 def run():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1190,6 +1540,7 @@ def run():
     import vnet_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     card, smi = phase_device_and_build()
+    phase_cuda_tests()
     blend = phase_kernel_vs_plain(card)
     phase_forward_card_vs_cpu()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_")
@@ -1208,6 +1559,12 @@ def run():
     (stats, grad_stats), (n_stats, n_grad) = phase_bn()
     tail, n_tail = phase_tail()
     rows, n_rows = phase_rows()
+    att_drops, _, _ = phase_attention_step()
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_att_cli_")
+    try:
+        phase_attention_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     own = "its own phase ({}); no entry point reaches it"
     say(json.dumps({"kernels": [
         dict(name="blend_accumulate_patches", route="cuda",
@@ -1217,8 +1574,10 @@ def run():
         dict(name="pallas_dropout", route="cuda",
              source="vnet_tpu_torch/csrc/dropout.cu",
              replaces="vnet_tpu/ops/pallas/dropout.py:99",
-             launches=train_counts["dropout"],
-             launches_in="phase 7 (training)", **drop),
+             launches=train_counts["dropout"] + att_drops,
+             launches_in="phase 7 (training, pallas flavour) and phase 13 "
+                         "(attention step, xla flavour)",
+             times_are="xla flavour at (96, 16, 64, 64, 64) bf16", **drop),
         dict(name="dw_conv_pallas", route="cuda",
              source="vnet_tpu_torch/csrc/dw_conv.cu",
              replaces="vnet_tpu/ops/pallas/dw_conv.py:209",

@@ -7,8 +7,9 @@ packed, offset-major layout). Values, mean and var, and the gradients of
 ``sum(y * w) + 0.3 sum(mean) + 0.7 sum(var)`` (which reach the direct
 mean and var gradients) agree at ``rtol = 1e-4``, ``atol = 1e-5``. On the
 CPU ``"pallas"`` runs the statistics wrappers' plain versions, so both
-switches are compared here and on the card (``cuda`` test below and
-``chip_smoke.py`` phase 9).
+switches are compared here and on the card
+(``tests/test_torch_cuda_batchnorm.py``, whose inputs this module shares,
+and ``chip_smoke.py`` phase 9).
 """
 
 import jax
@@ -17,21 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cuda_batchnorm import C, _inputs
 from vnet_tpu.ops.pallas import batchnorm as jax_bn
 from vnet_tpu_torch.models.layers import BatchNorm
 from vnet_tpu_torch.ops import batchnorm as bn
 from vnet_tpu_torch.ops.fused import bn_grad_stats, bn_stats
-
-C = 4
-
-
-def _inputs(groups, seed=0):
-    rng = np.random.default_rng(seed)
-    x = rng.normal(size=(2, 6, 6, groups * C)).astype(np.float32)
-    scale = rng.normal(size=(C,)).astype(np.float32) + 1.5
-    bias = rng.normal(size=(C,)).astype(np.float32)
-    w = rng.normal(size=x.shape).astype(np.float32)
-    return x, scale, bias, w
 
 
 def _jax_value_and_grads(x, scale, bias, w, groups):
@@ -169,34 +160,3 @@ def test_bad_switch_and_groups_raise(monkeypatch):
     monkeypatch.setattr(bn, "STATS_IMPL", "mosaic")
     with pytest.raises(ValueError, match="STATS_IMPL"):
         bn.batch_norm_train(torch.zeros(2, 4), torch.ones(4), torch.zeros(4))
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the statistics kernels have no CPU "
-                    "mode)")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("groups", [1, 8])
-def test_pallas_switch_launches_kernels_on_card(groups, monkeypatch,
-                                                cuda_device):
-    x, scale, bias, w = _inputs(groups, seed=5)
-    out = {}
-    for impl in ("xla", "pallas"):
-        monkeypatch.setattr(bn, "STATS_IMPL", impl)
-        ts = [torch.from_numpy(a).to(cuda_device).requires_grad_()
-              for a in (x, scale, bias)]
-        before = (bn_stats.launches, bn_grad_stats.launches)
-        y, mean, var = bn.batch_norm_train(*ts, 0.0, groups)
-        loss = ((y * torch.from_numpy(w).to(cuda_device)).sum()
-                + 0.3 * mean.sum() + 0.7 * var.sum())
-        grads = torch.autograd.grad(loss, ts)
-        launched = (bn_stats.launches - before[0],
-                    bn_grad_stats.launches - before[1])
-        assert launched == ((1, 1) if impl == "pallas" else (0, 0))
-        out[impl] = [t.detach().cpu() for t in (y, mean, var) + grads]
-    for a, b in zip(out["pallas"], out["xla"]):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

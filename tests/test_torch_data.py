@@ -1,6 +1,8 @@
-"""The port's own copies of the host modules (``config``, ``io``, ``data``)
-against the JAX package's: same config values, same volumes read, same
-transform outputs and the same batches for the same seed and fixture case.
+"""The port's own copies of the host modules (``config``, ``io``, ``data``,
+``data/distance.py``, ``train/images.py``) against the JAX package's: same
+config values, same volumes read, same transform outputs, the same batches
+(with the attention networks' distance maps) for the same seed and fixture
+case, the same distance maps and the same logged images.
 They are copies of one numpy/scipy code, so every comparison is exact. The
 port keeps only the scipy resampler, so the JAX side is held to it too
 (its optional native resampler agrees with scipy to rounding,
@@ -18,12 +20,16 @@ from fixtures import make_dataset_dir
 from vnet_tpu import config as jconfig
 from vnet_tpu import data as jdata
 from vnet_tpu import io as jio
+from vnet_tpu.data import distance as jdistance
 from vnet_tpu.data import rand as jrand
 from vnet_tpu.io import resample as jresample
+from vnet_tpu.train import images as jimages
 from vnet_tpu_torch import config as tconfig
 from vnet_tpu_torch import data as tdata
 from vnet_tpu_torch import io as tio
+from vnet_tpu_torch.data import distance as tdistance
 from vnet_tpu_torch.data import rand as trand
+from vnet_tpu_torch.train import images as timages
 
 PIPELINE = {"preprocess": {"train": {"3D": [
     {"name": "StatisticalNormalization", "variables": {"sigma": 2.5}},
@@ -141,3 +147,64 @@ def test_case_lists_and_batches_equal(dataset, tmp_path):
         assert ti.shape == (2, 16, 16, 16, 1) and tl.dtype == np.int32
         np.testing.assert_array_equal(ti, ji)
         np.testing.assert_array_equal(tl, jl)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_distance_map_equal(normalize, rng):
+    labels = [np.zeros((6, 5, 4), np.int32),
+              (rng.random((12, 10, 8)) > 0.6).astype(np.int32),
+              rng.integers(0, 3, (9, 9, 9)).astype(np.int32)]
+    for label in labels:
+        np.testing.assert_array_equal(
+            tdistance.distance_map(label, normalize),
+            jdistance.distance_map(label, normalize))
+
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def add_image(self, tag, img, step, dataformats="HWC"):
+        self.calls.append((tag, np.array(img), step, dataformats))
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 5, 4, 2), (3, 7, 6, 1)])
+def test_logged_images_equal(shape, rng):
+    """Every ``add_image`` call of ``log_batch_images``, 3D and 2D, and the
+    colour map on its own."""
+    images = rng.normal(100, 80, size=shape).astype(np.float32)
+    spatial = shape[:-1]
+    softmax = rng.random(spatial + (3,)).astype(np.float32)
+    softmax /= softmax.sum(-1, keepdims=True)
+    labels = rng.integers(0, 3, spatial).astype(np.int32)
+    pred = np.argmax(softmax, -1)
+    calls = []
+    for mod in (jimages, timages):
+        rec = _Recorder()
+        mod.log_batch_images(rec, "train", images, labels, softmax, pred,
+                             (0, 1, 4), 7)
+        calls.append(rec.calls)
+    assert len(calls[0]) == len(calls[1]) > 0
+    for (jt, ja, js, jf), (tt, ta, ts, tf) in zip(*calls):
+        assert (tt, ts, tf) == (jt, js, jf)
+        assert ta.dtype == ja.dtype == np.uint8
+        np.testing.assert_array_equal(ta, ja)
+    np.testing.assert_array_equal(timages.grayscale_to_rainbow(softmax),
+                                  jimages.grayscale_to_rainbow(softmax))
+
+
+def test_attention_samples_equal(dataset):
+    """``attention=True`` adds the label's distance map as a third output."""
+    split_dir, names = dataset
+    samples = []
+    for data, rand in ((jdata, jrand), (tdata, trand)):
+        rand.seed(5)
+        transforms = data.build_pipeline(PIPELINE, "train", 3)
+        ds = data.NiftiDataset3D(split_dir, transforms=transforms,
+                                 train=True, labels=(0, 1), attention=True)
+        samples.append(ds.get_sample(0))
+    (j, t) = samples
+    assert len(t) == len(j) == 3
+    for a, b in zip(t, j):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(t[2], tdistance.distance_map(t[1]))

@@ -2,11 +2,12 @@
 
 The random streams differ by design (the port's is Philox4x32-10, JAX's
 kernel uses the TPU's generator, flax threefry), so the tests hold the
-port to the JAX formulas for threshold and scale, to the keep probability
-within 5 standard deviations at 2^20 elements or more, to ``E[out] = x``,
-and to the mask properties the training step relies on. The plain version
-runs here; the CUDA kernel is held bitwise against it on the card (``cuda``
-test below and ``chip_smoke.py`` phase 5).
+port to the JAX formulas for threshold and scale, to the survivors' values
+bit for bit (``xla``: flax's ``inputs / keep_prob``), to the keep
+probability within 5 standard deviations at 2^20 elements or more, to
+``E[out] = x``, and to the mask properties the training step relies on. The
+plain version runs here; the CUDA kernel is held bitwise against it on the
+card (``tests/test_torch_cuda_dropout.py`` and ``chip_smoke.py``).
 """
 
 import math
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import flax.linen as flax_nn
+import jax
 import jax.numpy as jnp
 
 from vnet_tpu.ops.pallas.dropout import pallas_dropout
@@ -31,8 +34,8 @@ def _jax_thresholds(rate):
     keep = 1.0 - rate
     thr = min(int(round(keep * 4294967296.0)), 4294967295)
     t = min(max(int(round(keep * 256.0)), 1), 255)
-    return {"pallas": (thr, 1.0 / keep), "xla": (thr, 1.0 / keep),
-            "bits8": (t << 24, 256.0 / t)}
+    return {"pallas": (thr, 1.0 / keep, False), "xla": (thr, keep, True),
+            "bits8": (t << 24, 256.0 / t, False)}
 
 
 @pytest.mark.parametrize("rate", RATES)
@@ -52,7 +55,7 @@ def test_philox_known_answer():
                                        ("bits8", 0.3), ("xla", 0.5)])
 def test_keep_fraction_within_5_sigma(impl, rate):
     n = 1 << 20
-    thr, _ = dropout_params(rate, impl)
+    thr, _, _ = dropout_params(rate, impl)
     p = thr / 2.0 ** 32
     kept = keep_mask(n, 1234, 5, thr).sum().item()
     assert abs(kept - n * p) < 5 * math.sqrt(n * p * (1 - p))
@@ -62,8 +65,8 @@ def test_keep_fraction_within_5_sigma(impl, rate):
 def test_mean_is_preserved(impl):
     """``E[out] = x``: survivors are scaled by 1 / P(keep) exactly."""
     x = torch.full((1 << 20,), 3.0)
-    thr, scale = dropout_params(0.3, impl)
-    out = dropout_apply(x, 77, 1, thr, scale)
+    thr, scale, divide = dropout_params(0.3, impl)
+    out = dropout_apply(x, 77, 1, thr, scale, divide)
     p = thr / 2.0 ** 32
     assert scale * p == pytest.approx(1.0, abs=2.0 ** -31)
     sigma = 3.0 * scale * math.sqrt(p * (1 - p) / x.numel())
@@ -81,13 +84,49 @@ def test_survivors_scaled_in_dtype_like_jax(dtype, rng):
     expect = np.array(pallas_dropout(jnp.asarray(xn, jdtype), 9, 0.2,
                                        True).astype(jnp.float32))
     x = torch.from_numpy(xn).permute(0, 4, 1, 2, 3).to(dtype)
-    thr, scale = dropout_params(0.2, "pallas")
-    out = dropout_apply(x, 9, 2, thr, scale)
+    out = dropout_apply(x, 9, 2, *dropout_params(0.2, "pallas"))
     out = out.permute(0, 2, 3, 4, 1).float()
     expect = torch.from_numpy(expect)
     kept = out != 0
     assert 0.7 < kept.float().mean().item() < 0.9
     assert torch.equal(out[kept], expect[kept])
+
+
+XLA_DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16),
+              "f16": (torch.float16, jnp.float16),
+              "f32": (torch.float32, jnp.float32)}
+
+
+@pytest.mark.parametrize("rate", [0.01, 0.3])
+@pytest.mark.parametrize("name", sorted(XLA_DTYPES))
+def test_xla_survivors_equal_flax_division(name, rate, rng):
+    """``xla`` survivors equal flax's ``inputs / keep_prob`` bit for bit:
+    JAX rounds ``keep_prob`` to the array's dtype and divides once, which
+    differs from ``x * dtype(1 / keep)`` (bf16 at rate 0.01: 0.98828125,
+    and most survivors differ by an ulp) and, in float32, from ``x *
+    f32(1 / keep)`` by an ulp at some elements. The survivors of flax's own
+    ``nn.Dropout`` are held to the same values."""
+    tdt, jdt = XLA_DTYPES[name]
+    xn = (rng.normal(size=(2, 16, 8, 8, 4)) * 50.0).astype(np.float32)
+    xj = jnp.asarray(xn).astype(jdt)
+    keep_prob = 1.0 - rate
+    expect = torch.from_numpy(np.array((xj / keep_prob).astype(jnp.float32)))
+    flax_out = torch.from_numpy(np.array(flax_nn.Dropout(rate).apply(
+        {}, xj, deterministic=False,
+        rngs={"dropout": jax.random.PRNGKey(3)}).astype(jnp.float32)))
+    x = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt)
+    out = dropout_apply(x.permute(0, 4, 1, 2, 3), 5, 1,
+                        *dropout_params(rate, "xla"))
+    out = out.permute(0, 2, 3, 4, 1).float()
+    kept = out != 0
+    assert torch.equal(out[kept], expect[kept])
+    both = kept & (flax_out != 0)
+    assert both.float().mean().item() > 0.4
+    assert torch.equal(out[both], flax_out[both])
+    # the old multiply is not the same function in any of these dtypes
+    times = (x.float() * float(torch.tensor(1.0 / keep_prob, dtype=tdt))
+             ).to(tdt).float()
+    assert not torch.equal(times, expect)
 
 
 @pytest.mark.parametrize("fmt", ["channels_last", "contiguous"])
@@ -108,20 +147,20 @@ def test_backward_mask_equals_forward_mask(fmt, rng):
 
 def test_mask_follows_logical_position_not_storage():
     x = torch.arange(1.0, 1.0 + 2 * 3 * 4 * 5 * 6).reshape(2, 3, 4, 5, 6)
-    thr, scale = dropout_params(0.5, "pallas")
-    a = dropout_plain(x, 3, 4, thr, scale)
+    params = dropout_params(0.5, "pallas")
+    a = dropout_plain(x, 3, 4, *params)
     b = dropout_plain(x.contiguous(memory_format=torch.channels_last_3d), 3,
-                      4, thr, scale)
+                      4, *params)
     assert torch.equal(a, b)
 
 
 def test_same_key_same_mask_other_stream_other_mask():
     x = torch.ones(4096)
-    thr, scale = dropout_params(0.5, "pallas")
-    a = dropout_apply(x, 10, 0, thr, scale)
-    assert torch.equal(a, dropout_apply(x, 10, 0, thr, scale))
-    assert not torch.equal(a, dropout_apply(x, 10, 1, thr, scale))
-    assert not torch.equal(a, dropout_apply(x, 11, 0, thr, scale))
+    params = dropout_params(0.5, "pallas")
+    a = dropout_apply(x, 10, 0, *params)
+    assert torch.equal(a, dropout_apply(x, 10, 0, *params))
+    assert not torch.equal(a, dropout_apply(x, 10, 1, *params))
+    assert not torch.equal(a, dropout_apply(x, 11, 0, *params))
 
 
 def test_network_layers_have_distinct_streams():
@@ -141,13 +180,14 @@ def test_network_layers_have_distinct_streams():
 
 def test_cpu_takes_plain_and_counts_no_launch():
     before = dropout_apply.launches
-    dropout_apply(torch.ones(100), 1, 2, 2 ** 31, 2.0)
+    dropout_apply(torch.ones(100), 1, 2, 2 ** 31, 2.0, False)
     assert dropout_apply.launches == before
 
 
 def test_wrapper_never_falls_back_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
-        dropout_apply(torch.empty(16, device="meta"), 1, 2, 2 ** 31, 2.0)
+        dropout_apply(torch.empty(16, device="meta"), 1, 2, 2 ** 31, 2.0,
+                      False)
 
 
 def test_bad_arguments_raise():
@@ -156,27 +196,6 @@ def test_bad_arguments_raise():
     with pytest.raises(ValueError, match="rate"):
         dropout_params(0.0, "pallas")
     with pytest.raises(TypeError):
-        dropout_apply(torch.ones(4, dtype=torch.float64), 1, 2, 2 ** 31, 2.0)
+        dropout_apply(torch.ones(4, dtype=torch.float64), 1, 2, 2 ** 31, 2.0,
+                      True)
 
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the dropout kernel has no CPU mode)")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("impl", ["pallas", "bits8"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_equals_plain_on_card(impl, dtype, cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn((3, 16, 9, 8, 7), generator=gen, device=cuda_device
-                    ).to(dtype)
-    thr, scale = dropout_params(0.3, impl)
-    before = dropout_apply.launches
-    out_k = dropout_apply(x, 123, 4, thr, scale)
-    out_p = dropout_plain(x, 123, 4, thr, scale)
-    torch.cuda.synchronize()
-    assert dropout_apply.launches == before + 1
-    assert torch.equal(out_k, out_p)

@@ -8,7 +8,8 @@ JAX package's XLA formulation (``_dw_xla``) at the V-Net's narrow shapes
 against torch autograd of ``F.conv3d``. All in float32; the sums run in
 another order on each side, so values compare at ``rtol = 1e-4`` and
 ``atol = 1e-4 * max|dW|``. The CUDA kernel is held against the plain
-version on the card (``cuda`` test below and ``chip_smoke.py`` phase 6),
+version on the card (``tests/test_torch_cuda_dw_conv.py`` and
+``chip_smoke.py`` phase 6),
 and the planner that splits its work is checked here.
 """
 
@@ -138,13 +139,6 @@ def test_launch_takes_channels_last_cuda_tensors_only(rng):
         launch(xt.bfloat16(), gt.bfloat16(), (3, 3, 3), p)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the dW kernel has no CPU mode)")
-    return torch.device("cuda", 0)
-
-
 # the ten distinct stride-1 weight gradients of the flagship step, batch 96
 FLAGSHIP_DW = [(16, 16, 64, 5), (32, 16, 64, 5), (32, 32, 32, 5),
                (64, 32, 32, 5), (64, 64, 16, 5), (128, 64, 16, 5),
@@ -221,35 +215,3 @@ def test_mma_smem_counts_every_stage():
     "dw_reduce_kernel(float const*, float*, int, int, int, int)"])
 def test_profile_step_counts_every_dw_kernel(name):
     assert group_of(name) == "dW kernel"
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,k,dtype,g_cl", [
-    ((2, 9, 8, 7, 16, 16), 5, torch.bfloat16, True),     # narrow, ragged
-    ((2, 8, 8, 8, 32, 16), 5, torch.bfloat16, True),     # narrow
-    ((3, 9, 11, 13, 32, 32), 5, torch.bfloat16, True),   # wide, ragged
-    ((2, 4, 4, 4, 256, 256), 5, torch.bfloat16, True),   # wide
-    ((2, 8, 8, 8, 16, 3), 1, torch.bfloat16, True),      # CUDA cores
-    ((2, 6, 10, 16, 32, 16), 5, torch.float16, True),
-    ((2, 5, 6, 7, 16, 16), 3, torch.float32, True),      # CUDA cores
-    ((2, 7, 9, 11, 16, 32), 5, torch.bfloat16, False),   # g not CL
-])
-def test_kernel_equals_plain_on_card(shape, k, dtype, g_cl, cuda_device):
-    b, x, y, z, ci, co = shape
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    cl = torch.channels_last_3d
-    xt = torch.randn((b, ci, x, y, z), generator=gen, device=cuda_device
-                     ).to(dtype).contiguous(memory_format=cl)
-    gt = torch.randn((b, co, x, y, z), generator=gen, device=cuda_device
-                     ).to(dtype)
-    if g_cl:
-        gt = gt.contiguous(memory_format=cl)
-    before = dw_conv.launches
-    got = dw_conv(xt, gt, (k,) * 3)
-    again = dw_conv(xt, gt, (k,) * 3)
-    ref = dw_conv_plain(xt, gt, (k,) * 3)
-    torch.cuda.synchronize()
-    assert dw_conv.launches == before + 2
-    assert torch.equal(got, again)  # bitwise from run to run
-    torch.testing.assert_close(got, ref, rtol=RTOL,
-                               atol=RTOL * ref.abs().max().item())

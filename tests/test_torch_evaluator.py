@@ -138,11 +138,15 @@ def test_cli_evaluate_on_cpu_writes_outputs(tmp_path):
 
 
 def test_cli_train_is_not_ported(tmp_path):
-    """Training is ported for the V-Net; attention networks still raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["-p", "train", "--config_json",
-              _write_config(tmp_path, "batch", attention=True),
-              "--device", "cpu"])
+    """3D training is ported, attention networks included
+    (``test_torch_trainer.py``); 2D patches still raise."""
+    path = _write_config(tmp_path, "batch", attention=True)
+    tree = json.loads(open(path).read())
+    tree["TrainingSetting"]["PatchShape"] = [16, 16]
+    tree["EvaluationSetting"]["Stride"] = [16, 16]
+    open(path, "w").write(json.dumps(tree))
+    with pytest.raises(NotImplementedError, match="2D.*ROADMAP"):
+        main(["-p", "train", "--config_json", path, "--device", "cpu"])
 
 
 def test_cuda_device_without_cuda_raises(tmp_path):

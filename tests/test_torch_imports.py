@@ -2,7 +2,10 @@
 
 ``tests/conftest.py`` imports jax into this process, so the import check
 runs in a fresh interpreter; the source checks read every port file and
-``chip_smoke.py``.
+``chip_smoke.py``. The ``cuda``-marked tests live in JAX-free modules,
+``tests/test_torch_cuda_*.py``, so the card's machine, which has no JAX,
+runs them: they are held to the same checks, and they import nothing but
+torch, numpy, pytest and the port.
 """
 
 import os
@@ -18,14 +21,18 @@ PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__")
     for p in (ROOT / "vnet_tpu_torch").rglob("*.py")) + ["chip_smoke"]
+CUDA_TESTS = sorted(str(p.relative_to(ROOT)) for p in
+                    (ROOT / "tests").glob("test_torch_cuda_*.py"))
 PORT_SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                       (ROOT / "vnet_tpu_torch").rglob("*.py")) + [
-                          "chip_smoke.py"]
+                          "chip_smoke.py"] + CUDA_TESTS
 
 
 def test_port_import_leaves_jax_out():
+    modules = PORT_MODULES + [os.path.basename(p)[:-3] for p in CUDA_TESTS]
     code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}:\n"
+            "sys.path.insert(0, 'tests')\n"
+            f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'vnet_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'flax', 'vnet_tpu.')))\n"
@@ -53,10 +60,21 @@ def test_chip_smoke_names_no_jax_package_module():
 
 
 def test_port_modules_cover_the_package():
-    assert "vnet_tpu_torch.data.loader" in PORT_MODULES
-    assert "vnet_tpu_torch.io" in PORT_MODULES
-    assert "vnet_tpu_torch.ops.fused" in PORT_MODULES
-    assert "vnet_tpu_torch.ops.batchnorm" in PORT_MODULES
+    for module in ("data.loader", "io", "ops.fused", "ops.batchnorm",
+                   "models.attention", "data.device_aug", "data.distance",
+                   "train.events", "train.images", "profiler"):
+        assert f"vnet_tpu_torch.{module}" in PORT_MODULES, module
+    assert {os.path.basename(p) for p in CUDA_TESTS} == {
+        f"test_torch_cuda_{k}.py" for k in ("blend", "fused", "dropout",
+                                            "batchnorm", "dw_conv")}
+
+
+@pytest.mark.parametrize("relpath", CUDA_TESTS)
+def test_cuda_tests_import_only_torch_numpy_pytest_and_the_port(relpath):
+    text = (ROOT / relpath).read_text()
+    roots = set(re.findall(r"^\s*(?:from|import)\s+(\w+)", text,
+                           re.MULTILINE))
+    assert roots <= {"numpy", "pytest", "torch", "vnet_tpu_torch"}, roots
 
 
 @pytest.mark.parametrize("relpath", PORT_SOURCES)

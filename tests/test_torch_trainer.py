@@ -27,10 +27,13 @@ import torch
 import yaml
 
 from fixtures import make_dataset_dir
+from pathlib import Path
 from vnet_tpu.config import LossConfig as JaxLossConfig
 from vnet_tpu.models import build_network as jax_build_network
 from vnet_tpu.ops.losses import segmentation_loss as jax_segmentation_loss
+from vnet_tpu.config import load_config as jax_load_config
 from vnet_tpu.train.trainer import TrainState as JaxTrainState
+from vnet_tpu.train.trainer import Trainer as JaxTrainer
 from vnet_tpu.train.trainer import make_train_step as jax_make_train_step
 from vnet_tpu_torch.__main__ import main
 from vnet_tpu_torch.config import LossConfig, OptimizerConfig, load_config
@@ -39,6 +42,7 @@ from vnet_tpu_torch.convert import (flax_to_state_dict, grads_to_flax,
 from vnet_tpu_torch.models import build_network
 from vnet_tpu_torch.train import (TrainState, Trainer, checkpoints,
                                   make_train_step)
+from vnet_tpu_torch.train.events import event_files, read_events
 from vnet_tpu_torch.train.optim import build_optimizer
 
 from torch_parity import random_variables
@@ -156,8 +160,12 @@ def test_params_after_three_sgd_steps(pair):
 PATCH = (16, 16, 16)
 
 
+AUGMENT = [{"name": "RandomFlip", "variables": {"axes": [True, False, True]}},
+           {"name": "RandomNoise", "variables": {"sigma": 2.0}}]
+
+
 def _write_config(tmp, restore=False, max_iterations=2, batch=2, scan=1,
-                  testing=False):
+                  testing=False, augment=False, networks=None, **setting):
     pipeline = {"preprocess": {
         "train": {"3D": [
             {"name": "ManualNormalization",
@@ -165,12 +173,13 @@ def _write_config(tmp, restore=False, max_iterations=2, batch=2, scan=1,
             {"name": "Padding", "variables": {"output_size": list(PATCH)}},
             {"name": "RandomCrop",
              "variables": {"output_size": list(PATCH), "drop_ratio": 0.5,
-                           "min_pixel": 1}}]},
+                           "min_pixel": 1}}] + (AUGMENT if augment else [])},
         "evaluate": {"3D": [
             {"name": "ManualNormalization",
              "variables": {"windowMin": 0, "windowMax": 200}},
             {"name": "Padding", "variables": {"output_size": list(PATCH)}}]}}}
-    pipeline["preprocess"]["test"] = pipeline["preprocess"]["train"]
+    pipeline["preprocess"]["test"] = {
+        "3D": pipeline["preprocess"]["train"]["3D"][:3]}
     (tmp / "pipeline.yaml").write_text(yaml.safe_dump(pipeline))
     tree = {
         "TrainingSetting": {
@@ -187,11 +196,13 @@ def _write_config(tmp, restore=False, max_iterations=2, batch=2, scan=1,
                          "DropoutImpl": "pallas", "DwImpl": "pallas"},
             "Loss": {"Name": "weighted_sorensen", "Weights": [0.1, 1.0]},
             "Optimizer": {"Name": "Adam", "InitialLearningRate": 1e-3},
-            "Pipeline": str(tmp / "pipeline.yaml"), "Precision": "float32"},
+            "Pipeline": str(tmp / "pipeline.yaml"), "Precision": "float32",
+            **setting},
         "EvaluationSetting": {
             "Data": {"EvaluateDataDirectory": str(tmp / "evaluate")},
             "CheckpointPath": str(tmp / "ckpt"), "Stride": list(PATCH),
             "BatchSize": 2, "Pipeline": str(tmp / "pipeline.yaml")}}
+    tree["TrainingSetting"]["Networks"].update(networks or {})
     path = tmp / "config.json"
     path.write_text(json.dumps(tree))
     return str(path)
@@ -264,3 +275,84 @@ def test_trainer_defaults_to_cuda(data_dir):
         Trainer(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_network("VNet", num_classes=2)
+
+
+def test_sidecar_equals_jax_for_the_shipped_config(tmp_path):
+    """``network_config.json``, key for key and value for value, as the
+    JAX trainer writes it for ``configs/config.json``."""
+    path = str(Path(__file__).resolve().parent.parent / "configs"
+               / "config.json")
+    JaxTrainer(jax_load_config(path), log=False)._write_network_sidecar(
+        str(tmp_path / "jax"))
+    Trainer(load_config(path), device="cpu", log=False) \
+        ._write_network_sidecar(str(tmp_path / "port"))
+    jax_tree, port_tree = (json.loads((tmp_path / side / "network_config.json")
+                                      .read_text())
+                           for side in ("jax", "port"))
+    assert port_tree == jax_tree
+    assert {"PackedTargetLanes", "Remat", "Attention", "DwImpl"} <= set(
+        port_tree["Networks"])
+
+
+def test_cli_attention_trains_and_evaluates(data_dir):
+    """``Attention: true`` through the CLI: the loader adds distance maps,
+    the step logs the attention loss, the sidecar says so, and evaluation
+    blends the refined logits; ``max_cases`` limits the cases written."""
+    tmp = data_dir
+    make_dataset_dir(str(tmp), "evaluate", num_cases=2,
+                     rng=np.random.default_rng(4))
+    cfg = _write_config(tmp, networks={"Attention": True})
+    state = main(["-p", "train", "--config_json", cfg, "--device", "cpu"])
+    assert state.step == 2
+    assert type(state.network).__name__ == "AttentionGatedVNet"
+    sidecar = json.loads((tmp / "ckpt" / "network_config.json").read_text())
+    assert sidecar["Networks"]["Attention"] is True
+    tags = {s["tag"] for s in _scalars(tmp, "train")}
+    assert {"loss/attention_loss", "loss/0.total_loss"} <= tags
+    assert "loss/total_loss" not in tags
+    results = main(["-p", "evaluate", "--config_json", cfg, "--device",
+                    "cpu"])
+    assert len(results) == 2 and all(os.path.exists(r) for r in results)
+    from vnet_tpu_torch.infer.evaluator import Evaluator
+    from vnet_tpu_torch.io import read_image
+    for r in results:
+        os.remove(r)
+    ev = Evaluator(load_config(cfg), device="cpu")
+    assert ev.is_attention
+    (one,) = ev.evaluate(max_cases=1)
+    assert os.path.exists(one) and not os.path.exists(results[1])
+    assert set(np.unique(read_image(one).data).tolist()) <= {0, 1}
+
+
+def test_device_augment_image_log_and_trace(data_dir):
+    """``DeviceAugment`` moves the flip and the noise into the step;
+    ``ImageLog`` writes PNG images into the events files; ``--profile_dir``
+    writes a Chrome trace; ``--devices 2`` raises."""
+    tmp = data_dir
+    cfg = _write_config(tmp, augment=True, testing=True, batch=1,
+                        DeviceAugment=True, ImageLog=True)
+    trainer = Trainer(load_config(cfg), device="cpu")
+    loader = trainer.build_loader(str(tmp / "training"), "train")
+    names = [type(t).__name__ for t in loader.dataset.transforms]
+    assert "RandomFlip" not in names and "RandomNoise" not in names
+    assert trainer._device_aug == ((0, 2), 2.0)
+
+    trace_dir = tmp / "trace"
+    state = main(["-p", "train", "--config_json", cfg, "--device", "cpu",
+                  "--profile_dir", str(trace_dir), "--gpu", "0",
+                  "--devices", "1", "-v"])
+    assert state.step == 2
+    traces = list(trace_dir.glob("trace_*.json"))
+    assert len(traces) == 1
+    assert json.loads(traces[0].read_text())["traceEvents"]
+    for tag in ("train", "test"):
+        (path,) = event_files(str(tmp / "log" / tag))
+        values = [v for e in read_events(path) for v in e["values"]]
+        images = [v["image"] for v in values if "image" in v]
+        assert images and all(im["encoded"].startswith(b"\x89PNG")
+                              for im in images)
+        scalars = {v["tag"] for v in values if "simple_value" in v}
+        assert scalars == {s["tag"] for s in _scalars(tmp, tag)}
+    with pytest.raises(NotImplementedError, match="--devices 2"):
+        main(["-p", "train", "--config_json", cfg, "--device", "cpu",
+              "--devices", "2"])

@@ -8,11 +8,13 @@ its own copies, laid out as in the JAX package (``config``, ``io``, the 3D
 part of ``data``).
 
 Two slices run on the card: 3D training (``python -m vnet_tpu_torch -p
-train --config_json F --device cuda``), with dropout and the weight
-gradient of the stride-1 convolutions as hand-written CUDA kernels
-(``csrc/dropout.cu``, ``csrc/dw_conv.cu``), and whole-volume 3D evaluation
-(``-p evaluate``), with the sliding-window blend as one
-(``csrc/blend_accumulate.cu``). Convolutions otherwise run through cuDNN.
+train --config_json F --device cuda``; V-Net or the attention-gated V-Net,
+on-device augmentation, TensorBoard event files and image logs, traces),
+with dropout and the weight gradient of the stride-1 convolutions as
+hand-written CUDA kernels (``csrc/dropout.cu``, ``csrc/dw_conv.cu``), and
+whole-volume 3D evaluation (``-p evaluate``), with the sliding-window blend
+as one (``csrc/blend_accumulate.cu``). Convolutions otherwise run through
+cuDNN.
 Kernels are built with ``nvcc`` for ``sm_90a`` at first use
 (``ops/build.py``).
 """

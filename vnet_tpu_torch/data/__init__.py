@@ -2,9 +2,10 @@
 case datasets and the prefetching batch loader.
 
 The port's own copy of the 3D part of ``vnet_tpu/data`` (``registry``,
-``rand``, ``transforms3d``, ``dataset3d``, ``loader``), equal in behaviour
-(``tests/test_torch_data.py``). The 2D datasets and transforms and the
-on-device augmentation are not ported yet (ROADMAP.md).
+``rand``, ``transforms3d``, ``dataset3d``, ``distance``, ``loader``), equal
+in behaviour (``tests/test_torch_data.py``), and the on-device augmentation
+(``device_aug``, on tensors). The 2D datasets and transforms are not ported
+yet (ROADMAP.md).
 """
 
 from . import transforms3d  # noqa: F401  (populate registry)

@@ -3,8 +3,7 @@ transform chains — the equivalent of
 reference `pipeline/NiftiDataset3D.py:10-165` without the tf.data /
 py_func machinery: a plain iterable of numpy samples that the prefetching
 loader (``loader.py``) parallelizes and batches. The port's copy of
-``vnet_tpu/data/dataset3d.py`` without the attention networks' distance-map
-target (attention networks are not ported yet).
+``vnet_tpu/data/dataset3d.py``.
 """
 
 from __future__ import annotations
@@ -64,13 +63,16 @@ class NiftiDataset3D:
     def __init__(self, data_dir: str = "", image_filenames=("image.nii",),
                  label_filename: str = "label.nii", transforms=None,
                  train: bool = False, labels: Sequence[int] = (0, 1),
-                 cache_cases: int = 0):
+                 attention: bool = False, cache_cases: int = 0):
         self.data_dir = data_dir
         self.image_filenames = list(image_filenames)
         self.label_filename = label_filename
         self.transforms = transforms or []
         self.train = train
         self.labels = list(labels)
+        # attention=True additionally emits a distance-map supervision
+        # target (the reference's `distmap` feature, see .distance)
+        self.attention = attention
         self.cases = list_cases(data_dir)
         # cache_cases > 0: memoize decode + the DETERMINISTIC transform
         # prefix (everything before the first transform marked
@@ -200,6 +202,9 @@ class NiftiDataset3D:
             [np.asarray(im.data, dtype=np.float32) for im in sample["image"]],
             axis=-1)
         label_np = np.asarray(sample["label"].data, dtype=np.int32)
+        if self.attention:
+            from .distance import distance_map
+            return image_np, label_np, distance_map(label_np)
         return image_np, label_np
 
     def __iter__(self):

@@ -9,8 +9,10 @@ and the probability maps (linear, softmax / weight) back onto the original
 image grid, then largest connected component, volume threshold and the
 optional probability masking, and write NIfTI files.
 
-Weights come from ``state_dict`` or from the newest port checkpoint under
-``EvaluationSetting.CheckpointPath`` (``train/checkpoints.py``). The blend
+``Attention: true`` evaluates ``AttentionVNet`` and blends its first
+output, the refined logits. Weights come from ``state_dict`` or from the
+newest port checkpoint under ``EvaluationSetting.CheckpointPath``
+(``train/checkpoints.py``). The blend
 is the CUDA kernel for ``BlendImpl`` ``auto`` / ``pallas`` on a CUDA
 device; the CPU runs only when ``device`` says so.
 """
@@ -54,9 +56,8 @@ class Evaluator:
             raise NotImplementedError(
                 "2D evaluation is not ported yet (ROADMAP.md)")
         net_cfg = self.t.network
-        if net_cfg.attention:
-            raise NotImplementedError(
-                "AttentionVNet is not ported yet (ROADMAP.md)")
+        name = "AttentionVNet" if net_cfg.attention else net_cfg.name
+        self.is_attention = name == "AttentionVNet"
 
         # EvalNorm overrides the network's batch-norm kind
         norm = net_cfg.norm
@@ -72,7 +73,7 @@ class Evaluator:
         dtype = (torch.bfloat16 if self.t.precision == "bfloat16"
                  else torch.float32)
         self.network = build_network(
-            net_cfg.name, num_classes=self.t.num_classes,
+            name, num_classes=self.t.num_classes,
             in_channels=len(self.e.image_filenames), dropout_rate=0.0,
             num_channels=net_cfg.num_channel, num_levels=net_cfg.num_levels,
             num_convolutions=net_cfg.num_convolutions,
@@ -86,11 +87,15 @@ class Evaluator:
             raise ValueError(f"unknown LabelMode {self.e.label_mode!r}")
         self.hard_mode = self.e.label_mode == "average_hard"
         self.engine = SlidingWindowInference(
-            lambda patches: eval_apply(self.network, patches),
+            self._apply,
             self.t.patch_shape, self.e.stride, self.e.batch_size,
             self.t.num_classes, gaussian_blend=self.e.gaussian_blend,
             hard_accumulate=self.hard_mode, blend_impl=self.e.blend_impl,
             device=self.device)
+
+    def _apply(self, patches: torch.Tensor) -> torch.Tensor:
+        out = eval_apply(self.network, patches)
+        return out[0] if self.is_attention else out
 
     def _restore_state_dict(self) -> Dict[str, torch.Tensor]:
         path = self.e.checkpoint_path or self.t.ckpt_dir
@@ -163,11 +168,15 @@ class Evaluator:
                                  .astype(np.float32)) for pr in probs]
         return label, probs
 
-    def evaluate(self) -> List[str]:
-        """Evaluate every case under ``EvaluateDataDirectory`` and write the
-        label (and probability maps) into each case directory."""
+    def evaluate(self, max_cases: Optional[int] = None) -> List[str]:
+        """Evaluate every case under ``EvaluateDataDirectory`` (the first
+        ``max_cases`` of them, when given) and write the label (and
+        probability maps) into each case directory."""
         results = []
-        for case in list_cases(self.e.data_dir):
+        cases = list_cases(self.e.data_dir)
+        if max_cases is not None:
+            cases = cases[:max_cases]
+        for case in cases:
             case_dir = os.path.join(self.e.data_dir, case)
             out = self.evaluate_case(case_dir)
             if out is None:

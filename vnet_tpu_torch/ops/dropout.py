@@ -4,23 +4,26 @@ plain PyTorch version and the autograd Function around them.
 Counterpart of ``vnet_tpu/ops/pallas/dropout.py::pallas_dropout`` and of
 the three flavours of ``vnet_tpu/models/layers.py::Dropout``:
 
-    out = where(u < thr, x * scale, 0)
+    out = where(u < thr, x * factor, 0)     (pallas, bits8)
+    out = where(u < thr, x / factor, 0)     (xla)
 
 ``u`` is a 32-bit word of Philox4x32-10 keyed by ``(seed, stream)`` and
 counted by the element's position in the JAX layout's ``(B, X, Y, Z, C)``
 order (``csrc/dropout.cu``). The backward pass applies the same function to
 the gradient with the same key, so nothing but the key is saved. The
-threshold and scale of each flavour (:func:`dropout_params`):
+threshold, factor and operation of each flavour (:func:`dropout_params`):
 
-* ``pallas``: ``thr = min(round(keep * 2**32), 2**32 - 1)``, scale
-  ``1 / keep`` (``dropout.py:42,49`` of the JAX kernel);
+* ``pallas``: ``thr = min(round(keep * 2**32), 2**32 - 1)``, survivors
+  times ``1 / keep`` (``dropout.py:42,49`` of the JAX kernel);
 * ``bits8``: the top byte against ``t = clamp(round(keep * 256), 1, 255)``,
-  scale ``256 / t`` (``layers.py:704-709``);
-* ``xla``: keep probability exact to 2^-32 and scale ``1 / keep``, as flax.
+  survivors times ``256 / t`` (``layers.py:704-709``);
+* ``xla``: the same threshold as ``pallas``, survivors divided by ``keep``,
+  as flax's ``nn.Dropout`` computes ``inputs / keep_prob``.
 
 The stream is not JAX's: JAX's own kernel already differs from flax's.
-The scale is rounded to the tensor's dtype and the product is rounded once,
-as the JAX kernel multiplies in the tensor's dtype.
+The factor is rounded to the tensor's dtype (JAX casts a Python scalar to
+the array's dtype), and the product or quotient is taken in float32 and
+rounded once to the dtype, as XLA computes a bf16 or f16 operation.
 
 :func:`dropout_apply` launches the kernel for CUDA tensors and takes
 :func:`dropout_plain` only for CPU tensors; a CUDA tensor never falls back.
@@ -45,7 +48,9 @@ _PLAIN_GROUPS = 1 << 22                 # Philox calls per plain chunk
 
 
 def dropout_params(rate: float, impl: str):
-    """``(thr, scale)`` of a dropout flavour: keep iff ``u32 < thr``."""
+    """``(thr, factor, divide)`` of a dropout flavour: keep iff ``u32 <
+    thr``; a survivor is ``x / factor`` when ``divide``, else ``x *
+    factor``."""
     if impl not in IMPLS:
         raise ValueError(f"Unknown dropout impl {impl!r}; expected 'xla', "
                          "'bits8' or 'pallas'")
@@ -54,8 +59,11 @@ def dropout_params(rate: float, impl: str):
     keep = 1.0 - float(rate)
     if impl == "bits8":
         t = min(max(int(round(keep * 256.0)), 1), 255)
-        return t << 24, 256.0 / t
-    return min(int(round(keep * 4294967296.0)), _MASK32), 1.0 / keep
+        return t << 24, 256.0 / t, False
+    thr = min(int(round(keep * 4294967296.0)), _MASK32)
+    if impl == "xla":
+        return thr, keep, True
+    return thr, 1.0 / keep, False
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -119,14 +127,23 @@ def _unflat(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return flat.view(like.shape)
 
 
+def _in_dtype(factor: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(factor, dtype=dtype))
+
+
 def dropout_plain(x: torch.Tensor, seed: int, stream: int, thr: int,
-                  scale: float) -> torch.Tensor:
+                  factor: float, divide: bool) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch; any device."""
     xs = _storage_order(x)
-    s = float(torch.tensor(scale, dtype=x.dtype))  # rounded to the dtype
+    f = _in_dtype(factor, x.dtype)
     keep = keep_mask(xs.numel(), seed, stream, thr, x.device)
-    flat = torch.where(keep, _flat(xs) * s, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
+    xf = _flat(xs).float()
+    # a 0-d tensor on x's device: PyTorch's CUDA division by a Python
+    # scalar multiplies by its reciprocal, which can differ by one ulp
+    f_t = torch.tensor(f, dtype=torch.float32, device=x.device)
+    vals = (xf / f_t if divide else xf * f_t).to(x.dtype)
+    flat = torch.where(keep, vals, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
     return _unflat(flat, xs)
 
 
@@ -136,22 +153,23 @@ def _kernel():
     fn.argtypes = ([ctypes.c_void_p] * 2
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
                       ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def dropout_apply(x: torch.Tensor, seed: int, stream: int, thr: int,
-                  scale: float) -> torch.Tensor:
-    """``where(u < thr, x * scale, 0)`` with ``u`` from the key
-    ``(seed, stream)``; returns a new tensor, channels-last for 5D input.
-    CUDA tensors launch ``csrc/dropout.cu``; CPU tensors take
+                  factor: float, divide: bool) -> torch.Tensor:
+    """``where(u < thr, x / factor if divide else x * factor, 0)`` with
+    ``u`` from the key ``(seed, stream)`` (:func:`dropout_params` gives
+    ``thr, factor, divide``); returns a new tensor, channels-last for 5D
+    input. CUDA tensors launch ``csrc/dropout.cu``; CPU tensors take
     :func:`dropout_plain`."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"dropout takes float32, bfloat16 or float16, got "
                         f"{x.dtype}")
     if x.device.type == "cpu":
-        return dropout_plain(x, seed, stream, thr, scale)
+        return dropout_plain(x, seed, stream, thr, factor, divide)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     xs = _storage_order(x)
@@ -160,13 +178,13 @@ def dropout_apply(x: torch.Tensor, seed: int, stream: int, thr: int,
         return out
     align = 4 * xs.element_size()
     vec = int(xs.data_ptr() % align == 0 and out.data_ptr() % align == 0)
-    s = float(torch.tensor(scale, dtype=x.dtype))
+    f = _in_dtype(factor, x.dtype)
     fn = _kernel()
     with torch.cuda.device(x.device):
         cuda_stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(xs.data_ptr(), out.data_ptr(), xs.numel(), _DTYPES[x.dtype],
-                 int(seed) & _MASK32, int(stream) & _MASK32, int(thr), s, vec,
-                 cuda_stream)
+                 int(seed) & _MASK32, int(stream) & _MASK32, int(thr), f,
+                 int(bool(divide)), vec, cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout launch failed: CUDA error {err}")
     dropout_apply.launches += 1
@@ -180,18 +198,18 @@ class _Dropout(torch.autograd.Function):
     """Forward and backward are the same masked scale under one key."""
 
     @staticmethod
-    def forward(ctx, x, seed, stream, thr, scale):
-        ctx.key = (seed, stream, thr, scale)
-        return dropout_apply(x, seed, stream, thr, scale)
+    def forward(ctx, x, seed, stream, thr, factor, divide):
+        ctx.key = (seed, stream, thr, factor, divide)
+        return dropout_apply(x, seed, stream, thr, factor, divide)
 
     @staticmethod
     def backward(ctx, g):
-        return dropout_apply(g, *ctx.key), None, None, None, None
+        return dropout_apply(g, *ctx.key), None, None, None, None, None
 
 
 def dropout(x: torch.Tensor, seed: int, stream: int, rate: float,
             impl: str = "pallas") -> torch.Tensor:
     """Differentiable dropout of ``x`` under the key ``(seed, stream)``;
     ``rate`` in (0, 1), ``impl`` one of :data:`IMPLS`."""
-    thr, scale = dropout_params(rate, impl)
-    return _Dropout.apply(x, int(seed), int(stream), thr, scale)
+    return _Dropout.apply(x, int(seed), int(stream),
+                          *dropout_params(rate, impl))

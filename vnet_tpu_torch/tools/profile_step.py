@@ -1,11 +1,17 @@
 """Where the time of one training step goes, on the card.
 
     python -m vnet_tpu_torch.tools.profile_step [--batch 96] [--impl pallas]
+    python -m vnet_tpu_torch.tools.profile_step --attention --batch 8 \
+        --impl xla
 
 Builds ``bench.py``'s flagship training step (the 3D V-Net of
 ``configs/config.json`` at full width, bf16, 64^3 patches, weighted
-Sørensen, Adam, random data made from a seed as ``bench.py`` makes it),
-times ``--steps`` steps after a warm-up one, then records one more with
+Sørensen, Adam, random data made from a seed as ``bench.py`` makes it), or
+with ``--attention`` the attention-gated step of
+``configs/config_attention_multimodal.json`` (the same backbone on two
+modalities, attention heads of 64 channels, 2 classes, mixed Sørensen with
+alpha 0.5 plus the l2 distance loss x100, random distance maps), times
+``--steps`` steps after a warm-up one, then records one more with
 ``torch.profiler`` and prints the device time by kernel group, the device's
 busy and idle share of the step, and the peak device memory. Device busy
 time is the union of the intervals of the trace's device events (kernels,
@@ -68,6 +74,36 @@ def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0):
     return TrainState(net, opt), step, images, labels
 
 
+def attention_step(impl: str, batch: int, device="cuda", seed: int = 0):
+    """``(state, step_fn, images, labels)`` of the attention-gated step;
+    ``step_fn`` carries the step's distance maps."""
+    net = build_network("AttentionVNet", num_classes=2, in_channels=2,
+                        dropout_rate=0.01, norm="batch", dtype=torch.bfloat16,
+                        device=device,
+                        generator=torch.Generator().manual_seed(seed),
+                        dropout_impl=impl, dw_impl=impl)
+    opt, schedule = build_optimizer(
+        OptimizerConfig(name="Adam", initial_learning_rate=1e-2,
+                        decay_factor=0.99, decay_steps=100),
+        net.parameters())
+    raw = make_train_step(
+        LossConfig(name="mixed_sorensen", weights=(), alpha=0.5,
+                   attention_kind="l2", attention_scale=100.0),
+        2, schedule, compute_metrics=False, is_attention=True)
+    host = np.random.default_rng(seed)
+    images = torch.from_numpy(host.normal(size=(batch,) + PATCH + (2,))
+                              .astype(np.float32)).to(device)
+    labels = torch.from_numpy((host.random((batch,) + PATCH) > 0.7)
+                              .astype(np.int32)).to(device)
+    dmaps = torch.from_numpy(host.random((batch,) + PATCH).astype(
+        np.float32)).to(device)
+
+    def step(state, images, labels, dropout_seed):
+        return raw(state, images, labels, dropout_seed, dmaps)
+
+    return TrainState(net, opt), step, images, labels
+
+
 def timed_steps(state, step, images, labels, n: int):
     """Host-clock ms of ``n`` synchronised steps and their losses."""
     times, losses = [], []
@@ -124,14 +160,17 @@ def main(argv=None):
     parser.add_argument("--impl", default="pallas",
                         choices=["pallas", "bits8", "xla"])
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--attention", action="store_true",
+                        help="the attention-gated step instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
+    build = attention_step if args.attention else flagship_step
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    state, step, images, labels = flagship_step(args.impl, args.batch)
+    state, step, images, labels = build(args.impl, args.batch)
     torch.cuda.reset_peak_memory_stats()
     times, losses = timed_steps(state, step, images, labels, 1 + args.steps)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -141,7 +180,8 @@ def main(argv=None):
         torch.cuda.synchronize()
     span, busy, groups, kernels = breakdown(prof)
     print(f"card: {smi}")
-    print(f"impl {args.impl}, batch {args.batch}, 64^3 bf16: step ms "
+    what = "attention step" if args.attention else "flagship step"
+    print(f"{what}, impl {args.impl}, batch {args.batch}, 64^3 bf16: step ms "
           f"{[round(t, 1) for t in times]} (first is warm-up), median "
           f"{statistics.median(times[1:]):.1f} ms, "
           f"{args.batch / statistics.median(times[1:]) * 1e3:.1f} "

@@ -1,7 +1,7 @@
 """Training orchestrator of the port: the train step, the epoch loop,
-checkpoints and scalar logs — counterpart of ``vnet_tpu/train/trainer.py``.
+checkpoints and logs — counterpart of ``vnet_tpu/train/trainer.py``.
 
-One device, eager PyTorch: the step is forward (``VNet`` in train mode,
+One device, eager PyTorch: the step is forward (the network in train mode,
 dropout keyed by the step's seed), loss, ``backward``, optimizer step, in
 place on the network and optimizer that :class:`TrainState` holds. The loop
 keeps the JAX trainer's semantics: a checkpoint every ``LogInterval`` steps
@@ -11,12 +11,23 @@ false`` wipes the log and checkpoint directories, ``MaxIterations`` stops
 training (with a checkpoint), an optional test batch every ``TestStep``
 steps, and a training set that yields no batch is an error. ``ScanSteps``
 K > 1 runs K steps back to back on K buffered batches (the JAX package's
-``lax.scan`` block), timed as one block.
+``lax.scan`` block), timed as one block; attention networks run K = 1, as
+in JAX. ``network_config.json`` beside the checkpoints records the
+architecture, key for key as the JAX trainer writes it.
 
-Scalars go to ``LogDir/<tag>/scalars.jsonl`` (one JSON object per value:
-``tag``, ``step``, ``value``) under the JAX trainer's TensorBoard tags.
-``DeviceAugment``, attention networks, ``ImageLog``, 2D patches and
-multi-device meshes raise ``NotImplementedError`` (ROADMAP.md).
+``Attention: true`` trains ``AttentionVNet``: the loader adds the distance
+map of each label and the step adds the gate's distance loss to the
+segmentation loss. ``DeviceAugment: true`` takes ``RandomFlip`` and
+``RandomNoise`` out of the host chain and runs them in the step on the
+device (``data/device_aug.py``), from a generator seeded by the step's
+dropout seed, so a resumed run repeats its augmentation.
+
+Logs: each tag directory ``LogDir/<tag>/`` gets a TensorBoard events file
+(``train/events.py``; the JAX trainer's tags) and ``scalars.jsonl`` (one
+JSON object per value: ``tag``, ``step``, ``value``). ``ImageLog`` adds the
+input, label, softmax and prediction images at every ``LogInterval``
+checkpoint and every test step. 2D patches and multi-device meshes raise
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,20 +37,28 @@ import os
 import shutil
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config, load_pipeline
 from ..data import BatchLoader, NiftiDataset3D, build_pipeline
+from ..data.device_aug import flip_coins, flip_where, random_noise
+from ..data.transforms3d import RandomFlip, RandomNoise
 from ..device import resolve_device
-from ..models import build_network
+from ..models import attention_distance_loss, build_network, eval_apply
 from ..ops.losses import segmentation_loss
 from ..ops.metrics import batch_metrics
 from ..profiler import StepTimer
 from . import checkpoints
+from .events import EventWriter
+from .images import log_batch_images
 from .optim import build_optimizer, set_learning_rate
+
+# second word of the augmentation generator's seed: a torch Philox key
+# (seed, AUGMENT_KEY) that no dropout layer's key (seed, index) shares
+AUGMENT_KEY = 0xD1CE
 
 
 @dataclass
@@ -59,25 +78,62 @@ class TrainStepOutput:
     metrics: Dict[str, torch.Tensor]
 
 
+def augment_generator(device: torch.device,
+                      dropout_seed: int) -> torch.Generator:
+    """The device generator of one step's augmentation, seeded from the
+    step's dropout seed."""
+    seed = (AUGMENT_KEY << 32) | (int(dropout_seed) & 0xFFFFFFFF)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def make_train_step(loss_cfg, num_classes: int,
                     schedule: Callable[[int], float],
-                    compute_metrics: bool = True, compute_auc: bool = False):
-    """The train step ``(state, images, labels, dropout_seed) ->
-    TrainStepOutput``: images ``(B, x, y, z, C)`` float and labels
-    ``(B, x, y, z)`` int on the network's device. Updates ``state`` in
-    place (parameters, running averages, optimizer state, ``step``); the
-    gradients stay in the parameters' ``.grad``. Returned values stay on the
-    device."""
+                    compute_metrics: bool = True, compute_auc: bool = False,
+                    is_attention: bool = False):
+    """The train step ``(state, images, labels, dropout_seed,
+    distance_maps=None, device_augment=None) -> TrainStepOutput``: images
+    ``(B, x, y, z, C)``
+    float, labels ``(B, x, y, z)`` int and, for an attention network,
+    distance maps ``(B, x, y, z)`` float on the network's device. Updates
+    ``state`` in place (parameters, running averages, optimizer state,
+    ``step``); the gradients stay in the parameters' ``.grad``. Returned
+    values stay on the device.
 
-    def step_fn(state: TrainState, images, labels, dropout_seed: int):
+    ``device_augment``: ``(flip_axes, noise_sigma)``: each sample flips
+    (images, labels and distance maps with one coin) and the images get
+    Gaussian noise before the forward pass."""
+
+    def step_fn(state: TrainState, images, labels, dropout_seed: int,
+                distance_maps=None,
+                device_augment: Optional[Tuple[tuple, float]] = None):
         net, opt = state.network, state.optimizer
         net.train()
+        if device_augment is not None:
+            flip_axes, noise_sigma = device_augment
+            gen = augment_generator(images.device, dropout_seed)
+            if flip_axes:
+                coins = flip_coins(gen, images.shape[0], images.device)
+                images = flip_where(images, coins, flip_axes)
+                labels = flip_where(labels, coins, flip_axes)
+                if distance_maps is not None:
+                    distance_maps = flip_where(distance_maps, coins,
+                                               flip_axes)
+            if noise_sigma > 0.0:
+                images = random_noise(gen, images, noise_sigma)
         set_learning_rate(opt, schedule, state.step)  # pre-increment count
         opt.zero_grad(set_to_none=True)
-        logits = net(images, dropout_seed=dropout_seed)
+        out = net(images, dropout_seed=dropout_seed)
+        logits = out[0] if is_attention else out
         loss, aux = segmentation_loss(
             logits, labels, name=loss_cfg.name, num_classes=num_classes,
             weights=loss_cfg.weights, alpha=loss_cfg.alpha)
+        if is_attention and distance_maps is not None:
+            att_loss = attention_distance_loss(
+                out[1], distance_maps, kind=loss_cfg.attention_kind,
+                scale=loss_cfg.attention_scale)
+            aux = dict(aux, attention_loss=att_loss)
+            loss = loss + att_loss
+            aux["total_loss"] = loss
         loss.backward()
         opt.step()
         state.step += 1
@@ -92,14 +148,15 @@ def make_train_step(loss_cfg, num_classes: int,
     return step_fn
 
 
-def make_eval_step(loss_cfg, num_classes: int, compute_auc: bool = False):
-    """Loss and metrics of a test batch, updating nothing."""
+def make_eval_step(loss_cfg, num_classes: int, compute_auc: bool = False,
+                   is_attention: bool = False):
+    """Loss and metrics of a test batch, updating nothing (an attention
+    network's first output and the segmentation loss only)."""
 
     def step_fn(state: TrainState, images, labels):
-        net = state.network
-        net.eval()
+        out = eval_apply(state.network, images)
+        logits = out[0] if is_attention else out
         with torch.inference_mode():
-            logits = net(images)
             loss, aux = segmentation_loss(
                 logits, labels, name=loss_cfg.name, num_classes=num_classes,
                 weights=loss_cfg.weights, alpha=loss_cfg.alpha)
@@ -110,18 +167,29 @@ def make_eval_step(loss_cfg, num_classes: int, compute_auc: bool = False):
     return step_fn
 
 
-class ScalarLog:
-    """Append-only ``scalars.jsonl`` of one tag directory."""
+class TagLog:
+    """The logs of one tag directory: a TensorBoard events file and
+    ``scalars.jsonl``, both append-only."""
 
     def __init__(self, directory: str):
-        os.makedirs(directory, exist_ok=True)
+        self.events = EventWriter(directory)
         self._file = open(os.path.join(directory, "scalars.jsonl"), "a")
 
     def add_scalar(self, tag: str, value: float, step: int) -> None:
+        self.events.add_scalar(tag, value, step)
         self._file.write(json.dumps({"tag": tag, "step": int(step),
                                      "value": float(value)}) + "\n")
 
+    def add_image(self, tag: str, img, step: int,
+                  dataformats: str = "HWC") -> None:
+        self.events.add_image(tag, img, step, dataformats=dataformats)
+
+    def flush(self) -> None:
+        self.events.flush()
+        self._file.flush()
+
     def close(self) -> None:
+        self.events.close()
         self._file.close()
 
 
@@ -137,22 +205,15 @@ class Trainer:
         if t.dimension != 3:
             raise NotImplementedError("2D training is not ported yet "
                                       "(ROADMAP.md)")
-        if net_cfg.attention:
-            raise NotImplementedError("AttentionVNet is not ported yet "
-                                      "(ROADMAP.md)")
-        if t.device_augment:
-            raise NotImplementedError("DeviceAugment is not ported yet "
-                                      "(ROADMAP.md)")
-        if t.image_log:
-            raise NotImplementedError("ImageLog is not ported yet "
-                                      "(ROADMAP.md)")
         if t.mesh_space_parallel > 1 or t.mesh_dcn_parallel > 1:
             raise NotImplementedError("multi-device meshes are not ported "
                                       "yet (ROADMAP.md)")
         self.dtype = (torch.bfloat16 if t.precision == "bfloat16"
                       else torch.float32)
+        name = "AttentionVNet" if net_cfg.attention else net_cfg.name
+        self.is_attention = name == "AttentionVNet"
         self.network = build_network(
-            net_cfg.name, num_classes=t.num_classes,
+            name, num_classes=t.num_classes,
             in_channels=t.input_channels, dropout_rate=net_cfg.dropout,
             num_channels=net_cfg.num_channel, num_levels=net_cfg.num_levels,
             num_convolutions=net_cfg.num_convolutions,
@@ -164,28 +225,36 @@ class Trainer:
             t.optimizer, self.network.parameters())
         self._train_step_fn = make_train_step(
             t.loss, t.num_classes, self.lr_schedule,
-            compute_auc=t.compute_auc)
+            compute_auc=t.compute_auc, is_attention=self.is_attention)
         self._eval_step_fn = make_eval_step(t.loss, t.num_classes,
-                                            compute_auc=t.compute_auc)
+                                            compute_auc=t.compute_auc,
+                                            is_attention=self.is_attention)
+        self._device_aug = None  # (flip_axes, noise_sigma) when enabled
         self._writers = {}
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
         return TrainState(self.network, self.optimizer)
 
-    def _to_device(self, images, labels):
-        images = torch.from_numpy(np.asarray(images, np.float32))
-        labels = torch.from_numpy(np.asarray(labels, np.int32))
-        return (images.to(self.device, non_blocking=True),
-                labels.to(self.device, non_blocking=True))
+    def _tensor(self, array, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(array, dtype)).to(
+            self.device, non_blocking=True)
 
     def train_step(self, state: TrainState, images, labels,
-                   dropout_seed: int) -> TrainStepOutput:
-        return self._train_step_fn(state, *self._to_device(images, labels),
-                                   dropout_seed)
+                   dropout_seed: int, distance_maps=None) -> TrainStepOutput:
+        """One step on host arrays; an attention network without distance
+        maps regresses its gate to zero maps, as the JAX trainer does."""
+        if self.is_attention and distance_maps is None:
+            distance_maps = np.zeros(np.shape(labels), np.float32)
+        dmaps = (None if distance_maps is None
+                 else self._tensor(distance_maps, np.float32))
+        return self._train_step_fn(state, self._tensor(images, np.float32),
+                                   self._tensor(labels, np.int32),
+                                   dropout_seed, dmaps, self._device_aug)
 
     def eval_step(self, state: TrainState, images, labels) -> TrainStepOutput:
-        return self._eval_step_fn(state, *self._to_device(images, labels))
+        return self._eval_step_fn(state, self._tensor(images, np.float32),
+                                  self._tensor(labels, np.int32))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -195,20 +264,40 @@ class Trainer:
     def build_loader(self, data_dir: str, phase: str) -> BatchLoader:
         t = self.t
         transforms = build_pipeline(load_pipeline(t.pipeline_path), phase, 3)
+        if t.device_augment and phase == "train":
+            transforms = self._extract_device_augment(transforms)
         ds = NiftiDataset3D(
             data_dir, t.image_filenames, t.label_filename,
             transforms=transforms, train=True,
-            labels=t.segmentation_classes, cache_cases=t.cache_cases)
+            labels=t.segmentation_classes, attention=self.is_attention,
+            cache_cases=t.cache_cases)
         return BatchLoader(ds, t.batch_size, shuffle=True,
                            drop_remainder=True, num_workers=t.loader_workers,
                            backend=t.loader_backend, seed=t.seed)
 
+    def _extract_device_augment(self, transforms):
+        """Take ``RandomFlip`` and ``RandomNoise`` out of the host chain;
+        their parameters move into the train step."""
+        kept = []
+        flip_axes = ()
+        noise_sigma = 0.0
+        for tfm in transforms:
+            if isinstance(tfm, RandomFlip):
+                flip_axes = tuple(i for i, f in enumerate(tfm.axes) if f)
+            elif isinstance(tfm, RandomNoise):
+                noise_sigma = float(tfm.sigma)
+            else:
+                kept.append(tfm)
+        if flip_axes or noise_sigma > 0.0:
+            self._device_aug = (flip_axes, noise_sigma)
+        return kept
+
     # ------------------------------------------------------------------
-    def _writer(self, tag: str) -> Optional[ScalarLog]:
+    def _writer(self, tag: str) -> Optional[TagLog]:
         if not self.log_enabled:
             return None
         if tag not in self._writers:
-            self._writers[tag] = ScalarLog(os.path.join(self.t.log_dir, tag))
+            self._writers[tag] = TagLog(os.path.join(self.t.log_dir, tag))
         return self._writers[tag]
 
     def _log_scalars(self, tag: str, step: int, out: TrainStepOutput) -> float:
@@ -231,10 +320,52 @@ class Trainer:
             w.add_scalar(f"metrics/{k}", float(v), step)
         return loss
 
+    def _log_images(self, tag: str, step: int, state: TrainState, images,
+                    labels) -> None:
+        """ImageLog: inputs, label, per-class softmax and prediction of the
+        batch under the current weights (``train/images.py``)."""
+        w = self._writer(tag)
+        if w is None:
+            return
+        out = eval_apply(state.network, self._tensor(images, np.float32))
+        logits = out[0] if self.is_attention else out
+        softmax = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+        log_batch_images(w, tag, np.asarray(images), np.asarray(labels),
+                         softmax, np.argmax(softmax, axis=-1),
+                         self.t.segmentation_classes, step)
+
     def _save(self, state: TrainState) -> None:
+        """A checkpoint, and the logs so far on disk beside it."""
         checkpoints.save(self.t.ckpt_dir, state.network.state_dict(),
                          state.step, state.optimizer.state_dict(),
                          state.epoch)
+        for w in self._writers.values():
+            w.flush()
+
+    def _write_network_sidecar(self, ckpt_dir: str) -> None:
+        """``network_config.json`` beside the checkpoints: the architecture
+        travels with the weights, with the JAX trainer's keys and values
+        (``PackedTargetLanes`` and ``Remat``, knobs the port lacks, as the
+        config gives them)."""
+        net = self.t.network
+        sidecar = {
+            "Networks": {
+                "Name": net.name, "Dropout": net.dropout,
+                "NumChannel": net.num_channel, "NumLevels": net.num_levels,
+                "NumConvolutions": list(net.num_convolutions),
+                "BottomConvolutions": net.bottom_convolutions,
+                "Attention": net.attention, "Norm": net.norm,
+                "PackedTargetLanes": net.packed_target_lanes,
+                "DropoutImpl": net.dropout_impl, "Remat": net.remat,
+                "DwImpl": net.dw_impl,
+            },
+            "SegmentationClasses": list(self.t.segmentation_classes),
+            "PatchShape": list(self.t.patch_shape),
+            "Precision": self.t.precision,
+        }
+        os.makedirs(ckpt_dir, exist_ok=True)
+        with open(os.path.join(ckpt_dir, "network_config.json"), "w") as f:
+            json.dump(sidecar, f, indent=2)
 
     # ------------------------------------------------------------------
     def train(self, max_steps: Optional[int] = None) -> TrainState:
@@ -245,6 +376,7 @@ class Trainer:
                     shutil.rmtree(d)
                 os.makedirs(d, exist_ok=True)
         state = self.init_state()
+        self._write_network_sidecar(t.ckpt_dir)
         if t.restore:
             saved = checkpoints.restore_latest_state(t.ckpt_dir)
             if saved is not None:
@@ -282,25 +414,25 @@ class Trainer:
         seeds = self._dropout_seeds(state.step)
         timer = StepTimer(warmup=2)
         limit = t.max_iterations if max_steps is None else max_steps
-        scan_k = max(1, t.scan_steps)
+        scan_k = 1 if self.is_attention else max(1, t.scan_steps)
         scan_buf = []  # carries across epochs, as the JAX trainer's
         for epoch in range(state.epoch, t.epochs):
             epoch_loss, count = 0.0, 0
             t0 = time.time()
             pending = None  # (step, out), logged one step late
             epoch_batches = 0
-            for images, labels, *_ in train_loader.epoch():
+            for images, labels, *rest in train_loader.epoch():
                 epoch_batches += 1
                 if state.step >= limit:
                     print("Reach maximum iteration steps, training abort.")
                     self._save(state)
                     return state
-                scan_buf.append((images, labels))
+                scan_buf.append((images, labels, rest[0] if rest else None))
                 if len(scan_buf) < scan_k:
                     continue
                 with timer:
-                    outs = [self.train_step(state, im, lb, next(seeds))
-                            for im, lb in scan_buf]
+                    outs = [self.train_step(state, im, lb, next(seeds), dm)
+                            for im, lb, dm in scan_buf]
                     self._sync()
                 scan_buf = []
                 for i, out in enumerate(outs):
@@ -317,6 +449,9 @@ class Trainer:
 
                 if state.step % t.log_interval == 0:
                     self._save(state)
+                    if t.image_log:
+                        self._log_images("train", state.step, state, images,
+                                         labels)
 
                 if test_loader is not None and state.step % t.test_step == 0:
                     test_batch = next(test_iter, None)
@@ -332,6 +467,9 @@ class Trainer:
                         timages, tlabels, *_ = test_batch
                         self._log_scalars("test", state.step, self.eval_step(
                             state, timages, tlabels))
+                        if t.image_log:
+                            self._log_images("test", state.step, state,
+                                             timages, tlabels)
 
             if epoch_batches == 0:
                 raise ValueError(
