@@ -110,9 +110,37 @@ non-zero before the result line:
    reader (CRCs hold), their scalar tags equal ``scalars.jsonl``'s, image
    records hold PNGs, ``network_config.json`` has the JAX trainer's keys,
    the trace file exists, and evaluation launched the blend kernel and wrote
-   labels in {0, 1}.
+   labels in {0, 1};
+15. the 2D main path through the CLI: ``main(["-p", "train", ...])`` on
+   ``cuda`` at ``configs/config_2d.json``'s network at full width (VNet, 16
+   channels, 4 levels, convolutions (1, 2, 3, 3), bottom 3, PReLU, batch
+   norm, dropout 0.01 ``xla``, Sørensen, Adam, bf16), patch 256^2, its batch
+   of 32, 4 steps, the shipped ``pipeline/pipeline2D.yaml``, ``Testing`` on
+   (384^2 test crops every 2 steps), on 6 synthetic 320x320x48 cases (a
+   sphere labelled 1, ``CacheCases`` 6): finite losses, 42 dropout launches
+   a step (21 layers, forward and backward), no dW launch, a checkpoint that
+   restores; then ``-p evaluate`` of 2 synthetic 384x384x64 cases at the
+   config's evaluation settings (stride 256^2, batch 10, probability maps,
+   LCC, volume threshold 50), slice-stacked: 26 blend launches a case, each
+   held bitwise against the plain slice-adds on the same batch and on the
+   path its geometry implies; labels in {0, 1}, finite probability maps,
+   outputs of the source volume's size; the wall time of each part;
+16. the 2D step and the 2D kernel shapes: ``make_train_step`` at
+   ``config_2d.json``'s width, batch 32, 256^2, bf16, random data from seed
+   0: median step time over 6 steps after 2 warm-ups, patches/s, peak
+   memory, dropout launches a step and whether every dropout input is
+   channels-last; the dropout kernel vs its plain version at the 2D
+   network's largest dropout, (32, 16, 256, 256) bf16 channels-last,
+   ``xla``: bitwise equal, survivors ``x / keep_d``, backward mask = forward
+   mask for a gradient that is not channels-last, a channels-last output;
+   kernel, plain and ``F.dropout`` times beside the byte bound; the blend at
+   the stacked evaluation geometry (10 contributions of (1, 256, 256, 3)
+   into (64, 384, 384, 3) at the first 10 ``(z, i, j)`` rows): bitwise
+   equal, on the path the geometry implies, device time from a trace beside
+   the byte bound.
 
-No entry point reaches the kernels of phases 9-11 (as in the JAX package);
+Phases 15 and 16 run before phase 14. No entry point reaches the kernels
+of phases 9-11 (as in the JAX package);
 their launches in the ``kernels`` line are the counts of their own phase.
 The last lines are a JSON object describing each kernel, the card's name
 and power limit, and the result line
@@ -170,6 +198,11 @@ FLAGSHIP_BATCH = 96
 ATT_BATCH = 8  # config_attention_multimodal.json's BatchSize
 ATT_CHANNELS = 64  # the attention heads' width
 ATT_STEPS, ATT_WARMUP = 6, 2
+CONFIG_2D = os.path.join(ROOT, "configs", "config_2d.json")
+CASE_2D = (320, 320, 48)  # training cases of phase 15
+PATCH_2D = (256, 256)
+BATCH_2D = 32  # config_2d.json's BatchSize
+EVAL_STRIDE_2D = (256, 256)  # config_2d.json's evaluation Stride
 
 
 def check(cond: bool, msg: str) -> None:
@@ -259,7 +292,8 @@ def tensor_core_ops(library) -> dict:
     return found
 
 
-def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width):
+def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width,
+                     tag="[2]"):
     """Blend kernel vs the plain slice-adds: bitwise equal, on the float
     path of ``width`` floats per element; times and the byte bound (each
     covered accumulator element read and written once, each contribution
@@ -300,10 +334,10 @@ def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width):
                            if "blend_accumulate_kernel" in name)
     nbytes = (2 * covered * acc_shape[-1] * 4 + contrib.nbytes)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say(f"[2] {label}: acc {tuple(acc_shape)} contrib {tuple(contrib.shape)} "
-        f"starts {starts.tolist()}; {covered} covered elements, up to "
-        f"{depth} patches over one")
-    say(f"[2] {label}: {'float4' if got_width == 4 else 'float'} path "
+    say(f"{tag} {label}: acc {tuple(acc_shape)} contrib "
+        f"{tuple(contrib.shape)} starts {starts.tolist()}; {covered} covered "
+        f"elements, up to {depth} patches over one")
+    say(f"{tag} {label}: {'float4' if got_width == 4 else 'float'} path "
         f"(width {got_width}, expected {width}); bitwise_equal={equal} "
         f"max_abs_err={err:.3e}; kernel {ms:.4f} ms of device time "
         f"(profiler, median of {calls}, one launch a call in the trace, "
@@ -1392,12 +1426,18 @@ def _two_modality_case(rng):
     return img, t2, label
 
 
+def _blend_width(vz: int, pz: int, sz, c: int) -> int:
+    """Floats per element of the blend kernel's path at a geometry: 4 (the
+    float4 path) where VZ·C, PZ·C and every sz·C are multiples of 4, else 1
+    (csrc/blend_accumulate.cu)."""
+    return 4 if all(n * c % 4 == 0 for n in [vz, pz] + list(sz)) else 1
+
+
 def _held_blend(checked):
     """A stand-in for the sliding window's blend: the kernel on the batch,
     then the plain slice-adds on a copy of the accumulator from before it;
     appends ``(bitwise equal, max abs err, width taken, width expected,
-    contrib shape)`` to ``checked`` per call. The float4 path needs
-    VZ·C, PZ·C and every sz·C to be multiples of 4 (csrc)."""
+    contrib shape)`` to ``checked`` per call."""
     from vnet_tpu_torch.ops.blend import (blend_accumulate_patches,
                                           blend_accumulate_plain)
 
@@ -1406,12 +1446,11 @@ def _held_blend(checked):
         blend_accumulate_patches(acc, contrib, starts)
         width = blend_accumulate_patches.last_width
         ref = blend_accumulate_plain(before, contrib, starts)
-        c = acc.shape[-1]
-        vec = all(n * c % 4 == 0 for n in
-                  [acc.shape[2], contrib.shape[3]] + starts[:, 2].tolist())
         checked.append((torch.equal(acc, ref),
                         (acc - ref).abs().max().item(), width,
-                        4 if vec else 1, tuple(contrib.shape)))
+                        _blend_width(acc.shape[2], contrib.shape[3],
+                                     starts[:, 2].tolist(), acc.shape[-1]),
+                        tuple(contrib.shape)))
         return acc
 
     return blend
@@ -1533,6 +1572,306 @@ def phase_attention_cli(tmp):
     return train_counts["dropout"]
 
 
+def _case_2d(rng):
+    """A 320x320x48 volume at 0.75 mm: noise around 100 (sigma 20) and a
+    bright sphere labelled 1 (radius 20 voxels), so most slices hold more
+    than ``MinPixel`` labelled pixels and a 256^2 crop holds image."""
+    img = rng.normal(100.0, 20.0, size=CASE_2D).astype(np.float32)
+    label = np.zeros(CASE_2D, np.uint8)
+    x, y, z = np.ogrid[tuple(slice(0, s) for s in CASE_2D)]
+    cx, cy = (int(rng.integers(100, s - 100)) for s in CASE_2D[:2])
+    cz = int(rng.integers(20, CASE_2D[2] - 20))
+    ball = (x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2 <= 400
+    img[ball] += 40.0
+    label[ball] = 1
+    return img, label
+
+
+def _config_2d(tmp):
+    """``config_2d.json`` with its directories under ``tmp``, the shipped
+    2D pipeline, 4 steps and a test batch every 2."""
+    with open(CONFIG_2D) as f:
+        cfg = json.load(f)
+    ts, es = cfg["TrainingSetting"], cfg["EvaluationSetting"]
+    pipeline = os.path.join(ROOT, "pipeline", "pipeline2D.yaml")
+    ts["Data"]["TrainingDataDirectory"] = os.path.join(tmp, "training")
+    ts["Data"]["TestingDataDirectory"] = os.path.join(tmp, "training")
+    ts.update(LogDir=os.path.join(tmp, "log"),
+              CheckpointDir=os.path.join(tmp, "ckpt"), Pipeline=pipeline,
+              Restore=False, MaxIterations=4, LogInterval=2, TestStep=2,
+              CacheCases=6)
+    es.update(CheckpointPath=ts["CheckpointDir"], Pipeline=pipeline)
+    es["Data"]["EvaluateDataDirectory"] = os.path.join(tmp, "evaluate")
+    path = os.path.join(tmp, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path, cfg
+
+
+def phase_2d_cli(tmp):
+    """``config_2d.json`` through the CLI: 4 training steps at full width
+    and batch 32, then slice-stacked evaluation of 2 cases, its every blend
+    held bitwise against the plain slice-adds."""
+    from vnet_tpu_torch.__main__ import main
+    from vnet_tpu_torch.config import load_config
+    from vnet_tpu_torch.infer import sliding_window
+    from vnet_tpu_torch.io import MedicalImage, read_image, write_image
+    from vnet_tpu_torch.train import Trainer, checkpoints
+
+    path, cfg = _config_2d(tmp)
+    ts, es = cfg["TrainingSetting"], cfg["EvaluationSetting"]
+    check(ts["BatchSize"] == BATCH_2D and tuple(ts["PatchShape"]) == PATCH_2D
+          and tuple(es["Stride"]) == EVAL_STRIDE_2D
+          and es["BatchSize"] == SLICE_BATCH,
+          "config_2d.json's batch, patch or stride changed")
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    for i in range(6):
+        img, label = _case_2d(rng)
+        case_dir = os.path.join(tmp, "training", f"case_{i}")
+        os.makedirs(case_dir)
+        write_image(MedicalImage(img, (0.75,) * 3),
+                    os.path.join(case_dir, "image.nii"))
+        write_image(MedicalImage(label, (0.75,) * 3),
+                    os.path.join(case_dir, "label.nii"))
+    sources = []
+    for i in range(2):
+        case_dir = os.path.join(tmp, "evaluate", f"case_{i}")
+        os.makedirs(case_dir)
+        write_image(MedicalImage(_synthetic_image(rng), (0.75,) * 3),
+                    os.path.join(case_dir, "image.nii"))
+        sources.append(case_dir)
+    data_s = time.perf_counter() - t0
+
+    steps = ts["MaxIterations"]
+    reset_counts()
+    t0 = time.perf_counter()
+    state = main(["-p", "train", "--config_json", path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    n_dropout = len(state.network.dropouts)
+    with open(os.path.join(ts["LogDir"], "train", "scalars.jsonl")) as f:
+        losses = [json.loads(line)["value"] for line in f
+                  if '"loss/0.total_loss"' in line]
+    with open(os.path.join(ts["LogDir"], "test", "scalars.jsonl")) as f:
+        test_losses = [json.loads(line)["value"] for line in f
+                       if '"loss/0.total_loss"' in line]
+    say(f"[15] 2D train (config_2d.json: 16 ch, 4 levels, bf16, xla "
+        f"dropout): {steps} steps at batch {ts['BatchSize']}, patch "
+        f"{PATCH_2D}, in {train_s:.2f} s (incl. the slice inventory, data "
+        f"loading, model build, first-call warm-up, 384^2 test batches, "
+        f"checkpoints; {data_s:.1f} s before it writing the cases); losses "
+        f"{losses}; test losses {test_losses}; launches {counts}; "
+        f"{n_dropout} dropout layers")
+    check(state.step == steps, f"trained {state.step} steps, not {steps}")
+    check(state.network.spatial_rank == 2, "the network is not 2D")
+    # MaxIterations stops the loop inside an epoch before the last step's
+    # scalars are written (they are logged one step late), as in the JAX
+    # trainer; phase 7's epochs end with its last step
+    check(len(losses) == steps - 1 and all(np.isfinite(losses)),
+          f"losses {losses}")
+    check(len(test_losses) == 2 and all(np.isfinite(test_losses)),
+          f"test losses {test_losses}")
+    check(n_dropout == 21, f"{n_dropout} dropout layers")
+    check(counts["dropout"] == 2 * n_dropout * steps,
+          f"dropout launches {counts['dropout']} != {2 * n_dropout * steps}")
+    check(counts["dropout"] == sum(counts.values()),
+          f"2D training launched other kernels: {counts}")
+    saved = checkpoints.restore_latest_state(ts["CheckpointDir"])
+    check(saved is not None and saved["step"] == steps,
+          "no checkpoint of the last step")
+    fresh = Trainer(load_config(path), device="cuda", log=False)
+    fresh.network.load_state_dict(saved["model"])
+    fresh.optimizer.load_state_dict(saved["optimizer"])
+    trained = state.network.state_dict()
+    same = all(torch.equal(v, trained[k])
+               for k, v in fresh.network.state_dict().items())
+    check(same, "restored 2D weights differ from the trained ones")
+    del state, fresh, trained, saved
+    torch.cuda.empty_cache()
+
+    checked = []
+    kernel = sliding_window.blend_accumulate_patches
+    sliding_window.blend_accumulate_patches = _held_blend(checked)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        results = main(["-p", "evaluate", "--config_json", path, "--device",
+                        "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        sliding_window.blend_accumulate_patches = kernel
+    eval_s = time.perf_counter() - t0
+    eval_counts = read_counts()
+    grid = sliding_window.build_patch_grid(SLICE_VOLUME[:2], PATCH_2D,
+                                           EVAL_STRIDE_2D)
+    per_case = -(-SLICE_VOLUME[2] * len(grid) // SLICE_BATCH)
+    summary = []
+    for case_dir, result in zip(sources, results):
+        label = read_image(result)
+        src = read_image(os.path.join(case_dir, "image.nii"))
+        values = set(np.unique(label.data).tolist())
+        check(label.GetSize() == src.GetSize(), f"label {label.GetSize()}")
+        check(values <= {0, 1}, f"label values {values}")
+        for c in ts["SegmentationClasses"]:
+            prob = read_image(os.path.join(case_dir,
+                                           f"probability_tf_{c}.nii.gz"))
+            check(prob.GetSize() == src.GetSize(), f"prob {prob.GetSize()}")
+            check(bool(np.isfinite(prob.data).all()), "non-finite prob map")
+        summary.append((sorted(values), int(np.count_nonzero(label.data))))
+    say(f"[15] 2D evaluation of {len(results)} {SLICE_VOLUME} cases "
+        f"(stride {EVAL_STRIDE_2D}, batch {SLICE_BATCH}, {len(grid)} patches "
+        f"a slice, slice-stacked) in {eval_s:.1f} s (incl. model build, "
+        f"checkpoint load, host slice transforms, the plain blend beside "
+        f"each kernel call, resampling, LCC and .nii.gz writes of a label "
+        f"and 2 probability maps a case); launches {eval_counts} "
+        f"({per_case} a case expected); (label values, foreground voxels) "
+        f"{summary}")
+    say(f"[15] 2D evaluation blends vs the plain slice-adds on the same "
+        f"batches: {len(checked)} calls, contrib shapes "
+        f"{sorted({c[4] for c in checked})}, bitwise equal "
+        f"{sum(c[0] for c in checked)}/{len(checked)}, max abs err "
+        f"{max((c[1] for c in checked), default=float('nan')):.3e}, widths "
+        f"taken {sorted({c[2] for c in checked})} (expected "
+        f"{sorted({c[3] for c in checked})})")
+    check(len(results) == 2, f"{len(results)} labels written, expected 2")
+    check(eval_counts["blend_accumulate"] == 2 * per_case
+          and eval_counts["blend_accumulate"] == sum(eval_counts.values()),
+          f"2D evaluation launches {eval_counts}, expected {2 * per_case} "
+          f"blends")
+    check(len(checked) == eval_counts["blend_accumulate"],
+          f"{len(checked)} blends held for {eval_counts} launches")
+    check(all(c[0] for c in checked),
+          "a 2D evaluation blend differs from the plain slice-adds")
+    check(all(c[2] == c[3] for c in checked),
+          "a 2D evaluation blend took another path than its geometry "
+          "implies")
+    return counts["dropout"], eval_counts["blend_accumulate"], train_s, eval_s
+
+
+def _step_2d():
+    """``config_2d.json``'s step at batch 32: median ms over 6 steps after
+    2 warm-ups, peak memory, launches a step, and the memory format of
+    every dropout input in one more step."""
+    from vnet_tpu_torch.models.layers import Dropout
+    from vnet_tpu_torch.tools.profile_step import config2d_step, timed_steps
+
+    state, step, images, labels = config2d_step("xla", BATCH_2D, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    timed_steps(state, step, images, labels, ATT_WARMUP)
+    reset_counts()
+    times, losses = timed_steps(state, step, images, labels, ATT_STEPS)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    formats = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: formats.append(
+        args[0].is_contiguous(memory_format=torch.channels_last)))
+        for m in state.network.modules() if isinstance(m, Dropout)]
+    timed_steps(state, step, images, labels, 1)
+    for h in hooks:
+        h.remove()
+    ms = statistics.median(times)
+    say(f"[16] config_2d.json step (16 ch, 4 levels, 2 classes, Sørensen, "
+        f"Adam, DropoutImpl xla) batch {BATCH_2D} {PATCH_2D} bf16: median "
+        f"{ms:.2f} ms per step over {ATT_STEPS} after {ATT_WARMUP} warm-ups "
+        f"(host clock to the loss on the host; steps "
+        f"{', '.join(f'{t:.2f}' for t in times)}), "
+        f"{BATCH_2D / ms * 1e3:.1f} patches/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; losses {losses}; launches a step "
+        f"{ {k: v / ATT_STEPS for k, v in counts.items() if v} }; dropout "
+        f"inputs channels-last {sum(formats)}/{len(formats)}")
+    check(all(np.isfinite(losses)), f"2D step losses {losses}")
+    check(counts["dropout"] == 42 * ATT_STEPS
+          and counts["dropout"] == sum(counts.values()),
+          f"2D step launches {counts}")
+    check(len(formats) == 21 and all(formats),
+          "a dropout input of the 2D network is not channels-last")
+    del state, step, images, labels
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def _dropout_2d(gen):
+    """The dropout kernel at the 2D network's largest dropout."""
+    import torch.nn.functional as F
+
+    from vnet_tpu_torch.ops.dropout import (dropout, dropout_apply,
+                                            dropout_params, dropout_plain)
+
+    rate, seed, stream = 0.01, 20261017, 3
+    params = dropout_params(rate, "xla")
+    x = (torch.randn((BATCH_2D, 16) + PATCH_2D, generator=gen, device="cuda")
+         * 30.0).to(torch.bfloat16).contiguous(
+             memory_format=torch.channels_last)
+    out_k = dropout_apply(x, seed, stream, *params)
+    out_p = dropout_plain(x, seed, stream, *params)
+    torch.cuda.synchronize()
+    equal = torch.equal(out_k, out_p)
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    layout = out_k.is_contiguous(memory_format=torch.channels_last)
+    keep_d = torch.tensor(params[1], dtype=x.dtype).float().cuda()
+    kept = out_k != 0
+    quotient = torch.equal(out_k[kept], (x.float() / keep_d).to(x.dtype)[kept])
+    share = kept.float().mean().item()
+    del out_p, kept
+    xr = x.detach().requires_grad_()
+    y = dropout(xr, seed, stream, rate, "xla")
+    g = torch.ones(y.shape, dtype=y.dtype, device="cuda")  # not CL
+    (dx,) = torch.autograd.grad(y, xr, g)
+    # torch.randn yields an exact 0 about once in 2^24 draws (a uniform of
+    # 1.0 in Box-Muller); a kept 0 stays 0 in y, as in phase 5
+    zeros = int((x == 0).sum())
+    same_mask = (bool((((dx != 0) == (y != 0)) | (x == 0)).all())
+                 and torch.equal(y, out_k))
+    del xr, y, g, dx, out_k
+    ms = time_ms(lambda: dropout_apply(x, seed, stream, *params))
+    plain_ms = time_ms(lambda: dropout_plain(x, seed, stream, *params),
+                       reps=3)
+    lib_ms = time_ms(lambda: F.dropout(x, rate, training=True))
+    bound_ms = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[16] dropout xla {tuple(x.shape)} bf16 channels-last: "
+        f"bitwise_equal={equal} survivors x / keep_d rounded once="
+        f"{quotient}, kept {share:.6f}, output channels-last={layout}, "
+        f"backward_mask_equal={same_mask} ({zeros} zeros in x); kernel "
+        f"{ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms F.dropout {lib_ms:.4f} ms byte bound "
+        f"{bound_ms:.4f} ms ({2 * x.nbytes / 1e6:.1f} MB), "
+        f"{bound_ms / ms:.1%} of it")
+    check(equal, "2D dropout: kernel differs from the plain version")
+    check(quotient, "2D dropout: survivors != x / keep_d")
+    check(layout, "2D dropout: output not channels-last")
+    check(same_mask, "2D dropout: backward mask != forward mask")
+    del x
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=lib_ms)
+
+
+def phase_2d_shapes():
+    """The 2D step, then the dropout and blend kernels at 2D shapes."""
+    from vnet_tpu_torch.infer.sliding_window import build_patch_grid
+
+    step_ms, peak = _step_2d()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    drop = _dropout_2d(gen)
+    grid = build_patch_grid(SLICE_VOLUME[:2], PATCH_2D, EVAL_STRIDE_2D)
+    rows = np.concatenate(
+        [np.repeat(np.arange(SLICE_VOLUME[2], dtype=np.int32),
+                   len(grid))[:, None],
+         np.tile(grid, (SLICE_VOLUME[2], 1))], axis=-1)[:SLICE_BATCH]
+    stack = (SLICE_VOLUME[2],) + SLICE_VOLUME[:2]
+    c = 3  # blend weight and config_2d.json's two classes
+    width = _blend_width(stack[2], PATCH_2D[1], rows[:, 2].tolist(), c)
+    err, ms, plain_ms, bound_ms, call_ms = _kernel_vs_plain(
+        stack + (c,), (1,) + PATCH_2D, rows, gen, "slice-stacked 2D geometry",
+        width, tag="[16]")
+    blend = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                 call_ms=call_ms)
+    return step_ms, peak, drop, blend
+
+
 def run():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1560,6 +1899,14 @@ def run():
     tail, n_tail = phase_tail()
     rows, n_rows = phase_rows()
     att_drops, _, _ = phase_attention_step()
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_2d_")
+    try:
+        drops_2d, blends_2d, _, _ = phase_2d_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # before phase 14: a torch.profiler trace taken after phase 14's trace
+    # capture held no device events on the card
+    _, _, drop_2d, blend_2d = phase_2d_shapes()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_att_cli_")
     try:
         phase_attention_cli(tmp)
@@ -1570,14 +1917,21 @@ def run():
         dict(name="blend_accumulate_patches", route="cuda",
              source="vnet_tpu_torch/csrc/blend_accumulate.cu",
              replaces="vnet_tpu/ops/pallas/fused.py:220",
-             launches=launches, launches_in="phase 4 (evaluation)", **blend),
+             launches=launches + blends_2d,
+             launches_in="phase 4 (3D evaluation) and phase 15 (2D "
+                         "evaluation, slice-stacked)",
+             at_2d=dict(shape="10 x (1, 256, 256, 3) into (64, 384, 384, 3)",
+                        **blend_2d), **blend),
         dict(name="pallas_dropout", route="cuda",
              source="vnet_tpu_torch/csrc/dropout.cu",
              replaces="vnet_tpu/ops/pallas/dropout.py:99",
-             launches=train_counts["dropout"] + att_drops,
-             launches_in="phase 7 (training, pallas flavour) and phase 13 "
-                         "(attention step, xla flavour)",
-             times_are="xla flavour at (96, 16, 64, 64, 64) bf16", **drop),
+             launches=train_counts["dropout"] + att_drops + drops_2d,
+             launches_in="phase 7 (training, pallas flavour), phase 13 "
+                         "(attention step, xla flavour) and phase 15 (2D "
+                         "training, xla flavour)",
+             times_are="xla flavour at (96, 16, 64, 64, 64) bf16",
+             at_2d=dict(shape="(32, 16, 256, 256) bf16 channels-last, xla",
+                        **drop_2d), **drop),
         dict(name="dw_conv_pallas", route="cuda",
              source="vnet_tpu_torch/csrc/dw_conv.cu",
              replaces="vnet_tpu/ops/pallas/dw_conv.py:209",

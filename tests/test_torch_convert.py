@@ -144,3 +144,94 @@ def test_adam_state_carries_across(rng):
     for key, value in _flat(jax.device_get(jp)):
         np.testing.assert_allclose(got[key], value, rtol=1e-5, atol=1e-6,
                                    err_msg=str(key))
+
+
+@pytest.mark.parametrize("in_channels", [1, 2])
+def test_round_trip_2d_names_shapes_values(in_channels, rng):
+    """A 2D network's variables: every HWIO kernel maps to an OIHW (or a
+    flipped IOHW transpose) weight and back under ``kernel``, never under
+    ``scale``."""
+    net = jax_build_network("VNet", norm="batch", **SMALL)
+    variables = random_variables(net, rng, jnp.zeros((1, 16, 16,
+                                                      in_channels)),
+                                 train=False)
+    sd = flax_to_state_dict(variables)
+    port = build_network("VNet", in_channels=in_channels, norm="batch",
+                         device="cpu", spatial_rank=2, **SMALL)
+    expected = {k: tuple(v.shape) for k, v in port.state_dict().items()}
+    assert {k: tuple(v.shape) for k, v in sd.items()} == expected
+    assert sum(v.ndim == 4 for v in sd.values()) > 0
+    port.load_state_dict(sd, strict=True)
+
+    back = dict(_flat(state_dict_to_flax(port.state_dict())))
+    orig = dict(_flat(variables))
+    assert back.keys() == orig.keys()
+    for key, value in orig.items():
+        assert (key[-1] == "kernel") == (value.ndim == 4), key
+        np.testing.assert_array_equal(back[key], value, err_msg=str(key))
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_kernel_layout_inverse_2d(transpose, rng):
+    k = rng.normal(size=(2, 3, 4, 5)).astype(np.float32)
+    w = kernel_to_torch(k, transpose)
+    assert w.shape == ((4, 5, 2, 3) if transpose else (5, 4, 2, 3))
+    np.testing.assert_array_equal(kernel_to_flax(w, transpose), k)
+
+
+@pytest.mark.parametrize("cin,cout", [(1, 3), (4, 2)])
+def test_transpose_conv_2d_matches_lax_conv_transpose(cin, cout, rng):
+    """Rank 2: the flip is over the two spatial axes only."""
+    x = rng.normal(size=(2, 3, 5, cin)).astype(np.float32)
+    k = rng.normal(size=(2, 2, cin, cout)).astype(np.float32)
+    ref = np.asarray(jax.lax.conv_transpose(
+        jnp.asarray(x), jnp.asarray(k), (2, 2), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC")))
+    mod = SpatialConvTranspose(cin, cout, (2, 2), (2, 2))
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(np.ascontiguousarray(
+            kernel_to_torch(k, transpose=True))))
+        mod.bias.zero_()
+        out = mod(torch.from_numpy(x).permute(0, 3, 1, 2))
+    out = out.permute(0, 2, 3, 1).numpy()
+    assert out.shape == ref.shape == (2, 6, 10, cout)
+    if cin == 1:
+        np.testing.assert_array_equal(out, ref)
+    else:  # channel sums in another order
+        np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_2d_gradients_and_adam_state_round_trip(rng):
+    """Gradients and an optax Adam state of a 2D network carry across and
+    back exactly, kernels under ``kernel``."""
+    net = jax_build_network("VNet", norm="batch", **SMALL)
+    params = random_variables(net, rng, jnp.zeros((1, 16, 16, 1)),
+                              train=False)["params"]
+    grads = [jax.tree_util.tree_map(
+        lambda p: rng.normal(size=p.shape).astype(np.float32), params)
+        for _ in range(2)]
+    port = build_network("VNet", norm="batch", device="cpu", spatial_rank=2,
+                         **SMALL)
+    mapped = flax_to_grads(grads[0])
+    assert {k: tuple(v.shape) for k, v in mapped.items()} == {
+        k: tuple(p.shape) for k, p in port.named_parameters()}
+    back = dict(_flat(grads_to_flax(mapped)))
+    for key, value in _flat(grads[0]):
+        np.testing.assert_array_equal(back[key], value, err_msg=str(key))
+
+    tx = optax.adam(1e-2)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    opt_state = tx.init(jp)
+    for g in grads:
+        updates, opt_state = tx.update(g, opt_state, jp)
+        jp = optax.apply_updates(jp, updates)
+    opt = torch.optim.Adam(port.parameters(), lr=1e-2)
+    adam_state_from_optax(opt, port, opt_state)
+    back = adam_state_to_optax(opt, port)
+    assert back["count"] == 2
+    for name in ("mu", "nu"):
+        ref = dict(_flat(jax.device_get(getattr(opt_state[0], name))))
+        got = dict(_flat(back[name]))
+        assert got.keys() == ref.keys()
+        for key, value in got.items():
+            np.testing.assert_array_equal(value, ref[key], err_msg=str(key))

@@ -103,3 +103,63 @@ def test_kernel_splits_many_patches_in_order_on_card(rng, cuda_device):
     acc_k, acc_p, launches = _on_card(acc, contrib, starts, cuda_device)
     assert launches == -(-len(starts) // MAX_PATCHES_PER_LAUNCH)
     assert torch.equal(acc_k, acc_p)
+
+
+def _stacked_rows(stack, patch, stride):
+    """``(z, i, j)`` rows of a slice-stacked 2D grid, every z crossed with
+    the ``(H, W)`` grid in the sliding window's order."""
+    grid = build_patch_grid(stack[1:], patch, stride)
+    zs = np.repeat(np.arange(stack[0], dtype=np.int32), len(grid))
+    return np.concatenate([zs[:, None], np.tile(grid, (stack[0], 1))], -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack,patch,stride,c,width", [
+    # config_2d.json's evaluation: 384^2 planes, 256^2 patches at stride 256,
+    # 1 + 2 channels (weight, two classes)
+    ((64, 384, 384), (256, 256), (256, 256), 3, 4),
+    # ragged: odd widths, overlapping, clamped last starts
+    ((13, 41, 37), (16, 15), (9, 7), 3, 1)])
+def test_kernel_slice_stacked_geometry_on_card(stack, patch, stride, c, width,
+                                               cuda_device):
+    """The 2D evaluation's blend: contributions of depth 1, ``(B, 1, px, py,
+    C)``, into a ``(Z, H, W, C)`` accumulator at ``(z, i, j)`` starts; every
+    batch of 10 rows (batches straddle slices) bitwise equal to the
+    slice-adds, on the path the geometry implies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    rows = _stacked_rows(stack, patch, stride)
+    acc_k = torch.rand(stack + (c,), generator=gen, device=cuda_device)
+    acc_p = acc_k.clone()
+    for lo in range(0, len(rows), 10):
+        batch = rows[lo:lo + 10]
+        contrib = torch.rand((len(batch), 1) + patch + (c,), generator=gen,
+                             device=cuda_device)
+        st = torch.as_tensor(batch, dtype=torch.int32)
+        blend_accumulate_patches(acc_k, contrib, st)
+        assert blend_accumulate_patches.last_width == width
+        blend_accumulate_plain(acc_p, contrib, st)
+        torch.cuda.synchronize()
+        assert torch.equal(acc_k, acc_p), lo
+
+
+@pytest.mark.cuda
+def test_slice_stacked_engine_kernel_equals_plain_on_card(cuda_device):
+    """The slice-stacked sliding window with the kernel and with the plain
+    slice-adds: the same accumulators, bit for bit."""
+    from vnet_tpu_torch.infer.sliding_window import SlidingWindowInference
+
+    w = torch.randn((2, 3), generator=torch.Generator().manual_seed(4)).to(
+        cuda_device)
+
+    def model(p):  # logits that depend on the batch, like batch_stats
+        return torch.einsum("...c,ck->...k", p - p.mean(), w)
+
+    volume = np.random.default_rng(5).normal(size=(11, 40, 36, 2)).astype(
+        np.float32)
+    outs = [SlidingWindowInference(model, (16, 16), (9, 7), 6, 3,
+                                   gaussian_blend=True, blend_impl=impl,
+                                   slice_stacked=True,
+                                   device=cuda_device)(volume)
+            for impl in ("pallas", "xla")]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

@@ -56,3 +56,40 @@ def test_xla_survivors_are_one_rounded_division_on_card(dtype, cuda_device):
     kept = out != 0
     assert kept.float().mean().item() > 0.95
     assert torch.equal(out[kept], expect[kept])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("fmt", ["channels_last", "contiguous"])
+def test_2d_activation_kernel_equals_plain_on_card(impl, fmt, cuda_device):
+    """A 4-D ``(B, C, H, W)`` activation of the 2D network, bf16: the
+    kernel's output is channels-last and bitwise equal to the plain
+    version's, survivors of ``xla`` are ``x / keep_d`` rounded once, and the
+    backward pass masks a gradient that is not channels-last where the
+    forward pass masked."""
+    from vnet_tpu_torch.ops.dropout import dropout
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (torch.randn((4, 16, 40, 36), generator=gen, device=cuda_device)
+         * 30.0).to(torch.bfloat16)
+    if fmt == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    params = dropout_params(0.1, impl)
+    out_k = dropout_apply(x, 99, 5, *params)
+    out_p = dropout_plain(x, 99, 5, *params)
+    torch.cuda.synchronize()
+    assert out_k.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out_k, out_p)
+    if impl == "xla":
+        keep_d = torch.tensor(params[1], dtype=x.dtype).float().to(
+            cuda_device)
+        kept = out_k != 0
+        assert torch.equal(out_k[kept], (x.float() / keep_d).to(x.dtype)[kept])
+    xr = x.detach().requires_grad_()
+    y = dropout(xr, 99, 5, 0.1, impl)
+    g = torch.ones(y.shape, dtype=y.dtype, device=cuda_device)
+    assert not g.is_contiguous(memory_format=torch.channels_last)
+    (dx,) = torch.autograd.grad(y, xr, g)
+    # an exact 0 in x (torch.randn draws one about once in 2^24) stays 0
+    assert bool((((dx != 0) == (y != 0)) | (x == 0)).all())
+    assert torch.equal(y, out_k)

@@ -1,8 +1,9 @@
 """The port's own copies of the host modules (``config``, ``io``, ``data``,
 ``data/distance.py``, ``train/images.py``) against the JAX package's: same
-config values, same volumes read, same transform outputs, the same batches
-(with the attention networks' distance maps) for the same seed and fixture
-case, the same distance maps and the same logged images.
+config values, same volumes read, same 3D and 2D transform outputs, the same
+batches (with the attention networks' distance maps) and the same 2D slice
+inventories and samples for the same seed and fixture case, the same
+distance maps and the same logged images.
 They are copies of one numpy/scipy code, so every comparison is exact. The
 port keeps only the scipy resampler, so the JAX side is held to it too
 (its optional native resampler agrees with scipy to rounding,
@@ -60,6 +61,27 @@ TRANSFORMS = {
     "BSplineDeformation": {"randomness": 4},
 }
 
+# every registered 2D transform, with arguments
+TRANSFORMS_2D = {
+    "ManualNormalization": {"windowMin": 0, "windowMax": 200},
+    "Resample": {"voxel_size": [0.8, 1.3]},
+    "Padding": {"output_size": [30, 20]},
+    "RandomCrop": {"output_size": [12, 12], "drop_ratio": 0.5,
+                   "min_pixel": 1},
+    "RandomFlip": {}, "RandomRotate": {},
+    "RandomTranslate": {"maxOffset": [5, 5]}, "RadialDistortion": {},
+}
+
+PIPELINE_2D = {"preprocess": {"train": {
+    "3D": [{"name": "StatisticalNormalization", "variables": {"sigma": 2.5}},
+           {"name": "RandomNoise", "variables": {"sigma": 2}}],
+    "2D": [{"name": "ManualNormalization",
+            "variables": {"windowMin": 0, "windowMax": 600}},
+           {"name": "Resample", "variables": {"voxel_size": [0.9, 0.9]}},
+           {"name": "Padding", "variables": {"output_size": [20, 20]}},
+           {"name": "RandomCrop", "variables": {"output_size": [16, 16]}},
+           {"name": "RandomFlip"}]}}}
+
 
 @pytest.fixture(autouse=True)
 def _scipy_resampler(monkeypatch):
@@ -113,6 +135,8 @@ def test_io_reads_and_resamples_alike(dataset, tmp_path):
 def test_registries_equal():
     assert tdata.transform_names(3) == jdata.transform_names(3)
     assert sorted(TRANSFORMS) == tdata.transform_names(3)
+    assert tdata.transform_names(2) == jdata.transform_names(2)
+    assert sorted(TRANSFORMS_2D) == tdata.transform_names(2)
 
 
 @pytest.mark.parametrize("name", sorted(TRANSFORMS))
@@ -208,3 +232,67 @@ def test_attention_samples_equal(dataset):
     for a, b in zip(t, j):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(t[2], tdistance.distance_map(t[1]))
+
+
+def _oblique(data):
+    """``MedicalImage`` kwargs of a volume with an off-axis geometry."""
+    c, s = np.cos(0.3), np.sin(0.3)
+    return dict(spacing=(0.8, 1.1, 1.7), origin=(-12.0, 30.5, 4.25),
+                direction=(c, -s, 0.0, s, c, 0.0, 0.0, 0.0, 1.0))
+
+
+def test_extract_slice_equal(rng):
+    data = rng.normal(size=(7, 6, 5)).astype(np.float32)
+    for z in (0, 3, 4):
+        j = jdata.dataset2d.extract_slice(
+            jio.MedicalImage(data, **_oblique(data)), z)
+        t = tdata.dataset2d.extract_slice(
+            tio.MedicalImage(data, **_oblique(data)), z)
+        np.testing.assert_array_equal(t.data, j.data)
+        assert (t.spacing, t.origin, t.direction) == (j.spacing, j.origin,
+                                                      j.direction)
+
+
+@pytest.mark.parametrize("name", sorted(TRANSFORMS_2D))
+def test_transform_2d_outputs_equal(name, dataset):
+    split_dir, names = dataset
+    outs = []
+    for data, rand in ((jdata, jrand), (tdata, trand)):
+        case = data.NiftiDataset3D(split_dir, train=True,
+                                   labels=(0, 1)).load_case(names[1])
+        sample = {"image": [data.dataset2d.extract_slice(im, 8)
+                            for im in case["image"]],
+                  "label": data.dataset2d.extract_slice(case["label"], 8)}
+        rand.seed(11)
+        outs.append(data.build_transform(2, name, TRANSFORMS_2D[name])(sample))
+    (j, t) = outs
+    np.testing.assert_array_equal(t["image"][0].data, j["image"][0].data)
+    np.testing.assert_array_equal(t["label"].data, j["label"].data)
+    assert (t["image"][0].spacing, t["image"][0].origin) == (
+        j["image"][0].spacing, j["image"][0].origin)
+
+
+@pytest.mark.parametrize("cache_cases", [0, 3])
+def test_slice_inventory_and_batches_equal(cache_cases, dataset):
+    """``NiftiDataset2D``'s inventory (``MinPixel`` / ``DropRatio`` from the
+    shared generator) and its batches through the loader."""
+    split_dir, _ = dataset
+    runs = []
+    for data, rand in ((jdata, jrand), (tdata, trand)):
+        rand.seed(4)
+        transforms = data.build_pipeline(PIPELINE_2D, "train", 2)
+        ds = data.NiftiDataset2D(
+            split_dir, transforms3D=transforms["3D"],
+            transforms2D=transforms["2D"], train=True, labels=(0, 1),
+            min_pixel=30, drop_ratio=0.3, cache_cases=cache_cases)
+        loader = data.BatchLoader(ds, 3, shuffle=True, num_workers=0,
+                                  seed=9)
+        runs.append((ds.slices, [b for _ in range(2)
+                                 for b in loader.epoch()]))
+    (j_slices, j_batches), (t_slices, t_batches) = runs
+    assert t_slices == j_slices and len(t_slices) >= 6
+    assert len(t_batches) == len(j_batches) >= 2
+    for (ji, jl), (ti, tl) in zip(j_batches, t_batches):
+        assert ti.shape == (3, 16, 16, 1) and tl.dtype == np.int32
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(tl, jl)

@@ -199,3 +199,33 @@ def test_bad_arguments_raise():
         dropout_apply(torch.ones(4, dtype=torch.float64), 1, 2, 2 ** 31, 2.0,
                       True)
 
+
+
+@pytest.mark.parametrize("fmt", ["channels_last", "contiguous"])
+def test_2d_activation_in_channels_last_counter_order(fmt, rng):
+    """A 4-D ``(B, C, H, W)`` activation of the 2D network: the output is
+    channels-last whatever the input's format, its mask is the counter
+    stream in the JAX layout's ``(B, H, W, C)`` order, the keep fraction is
+    within 5 sigma, survivors are ``x / keep_d`` rounded once, and the
+    backward pass masks a gradient that is not channels-last where the
+    forward pass masked."""
+    rate = 0.3
+    thr, keep, divide = dropout_params(rate, "xla")
+    xn = (rng.normal(size=(4, 8, 64, 32)) * 40.0).astype(np.float32)
+    x = torch.from_numpy(xn).to(torch.bfloat16)
+    if fmt == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    x.requires_grad_()
+    y = dropout(x, 123, 4, rate, "xla")
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    mask = keep_mask(y.numel(), 123, 4, thr).view(4, 64, 32, 8)
+    assert torch.equal(y.detach().permute(0, 2, 3, 1) != 0, mask)
+    n, p = y.numel(), thr / 2.0 ** 32
+    assert abs(mask.sum().item() - n * p) < 5 * math.sqrt(n * p * (1 - p))
+    keep_d = float(torch.tensor(keep, dtype=torch.bfloat16))
+    expect = (x.detach().float() / keep_d).to(torch.bfloat16)
+    assert torch.equal(y.detach()[y != 0], expect[y != 0])
+    g = torch.ones(y.shape, dtype=y.dtype)  # row-major, not channels-last
+    assert not g.is_contiguous(memory_format=torch.channels_last)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert torch.equal(dx != 0, y != 0)

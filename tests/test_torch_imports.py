@@ -60,7 +60,8 @@ def test_chip_smoke_names_no_jax_package_module():
 
 
 def test_port_modules_cover_the_package():
-    for module in ("data.loader", "io", "ops.fused", "ops.batchnorm",
+    for module in ("data.loader", "data.dataset2d", "data.transforms2d",
+                   "io", "ops.fused", "ops.batchnorm",
                    "models.attention", "data.device_aug", "data.distance",
                    "train.events", "train.images", "profiler"):
         assert f"vnet_tpu_torch.{module}" in PORT_MODULES, module

@@ -184,3 +184,78 @@ def test_eval_mode_leaves_running_averages(rng):
         port(to_port(rng.normal(size=(2, 4, 4, 4, 8)).astype(np.float32)))
     for k, v in port.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+@pytest.mark.parametrize("impl", ["direct", "auto"])
+def test_spatial_conv_2d(impl, rng):
+    x = rng.normal(size=(2, 8, 6, 3)).astype(np.float32)
+    mod = jl.conv(5, 5, 2, impl=impl)
+    v = random_variables(mod, rng, jnp.asarray(x))
+    ref = jax_apply(mod, v, jnp.asarray(x))
+    conv = tl.SpatialConv(3, 5, (5, 5))
+    assert conv.strides == (1, 1)
+    out = _port_out(conv, v, x)
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("norm", ["batch", "batch_stats"])
+def test_down_conv_2d(norm, rng):
+    x = rng.normal(size=(2, 8, 6, 4)).astype(np.float32)
+    mod = jl.DownConv(2, norm, "prelu", impl="auto")
+    v = random_variables(mod, rng, jnp.asarray(x), train=False)
+    ref = jax_apply(mod, v, jnp.asarray(x), train=False)
+    out = _port_out(tl.DownConv(4, 2, norm, "prelu", rank=2), v, x)
+    assert out.shape == (2, 4, 3, 8)
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("norm", ["batch", "batch_stats"])
+def test_up_conv_2d(norm, rng):
+    x = rng.normal(size=(2, 4, 3, 8)).astype(np.float32)
+    mod = jl.UpConv(2, norm, "prelu", impl="auto")
+    v = random_variables(mod, rng, jnp.asarray(x), train=False)
+    ref = jax_apply(mod, v, jnp.asarray(x), train=False)
+    out = _port_out(tl.UpConv(8, 2, norm, "prelu", rank=2), v, x)
+    assert out.shape == (2, 8, 6, 4)
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("norm,in_channels", [
+    ("batch", 1), ("batch_stats", 1), ("batch", 2), ("batch_stats", 2)])
+def test_vnet_2d_eval_f32(norm, in_channels, rng):
+    """The 2D network (``spatial_rank=2``) against JAX's VNet on rank-2
+    input, eval mode, float32."""
+    x = rng.normal(50.0, 20.0, size=(3, 32, 32, in_channels)).astype(
+        np.float32)
+    net = jax_build_network("VNet", norm=norm, **SMALL)
+    v = random_variables(net, rng, jnp.asarray(x), train=False)
+    ref = np.asarray(jax_eval_apply(net, v, jnp.asarray(x)))
+    port = build_network("VNet", in_channels=in_channels, norm=norm,
+                         device="cpu", spatial_rank=2, **SMALL)
+    port.load_state_dict(flax_to_state_dict(v), strict=True)
+    out = eval_apply(port, torch.from_numpy(x)).numpy()
+    assert out.dtype == np.float32 and out.shape == ref.shape == (
+        3, 32, 32, 3)
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+def test_vnet_2d_keeps_channels_last():
+    """Training mode at rank 2: every convolution's and every dropout's
+    input is channels-last (``torch.channels_last``), through the tiled
+    input norm, the decoder's concat and dropout itself, so no layer pays a
+    layout copy; a 2D ``AttentionVNet`` is refused."""
+    port = build_network("VNet", device="cpu", spatial_rank=2,
+                         **dict(SMALL, dropout_rate=0.1))
+    seen = []
+    for m in port.modules():
+        if isinstance(m, (tl.SpatialConv, tl.Dropout)):
+            m.register_forward_pre_hook(lambda mod, args: seen.append(
+                (type(mod).__name__, args[0].is_contiguous(
+                    memory_format=torch.channels_last))))
+    port.train()
+    port(torch.ones(2, 16, 16, 1), dropout_seed=3).sum().backward()
+    assert len(seen) == 7 + 10  # 7 dropouts; 7 block, 2 down, 1 output conv
+    assert all(cl for _, cl in seen), seen
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_network("AttentionVNet", num_classes=2, device="cpu",
+                      spatial_rank=2)

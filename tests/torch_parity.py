@@ -46,9 +46,11 @@ def jax_apply(module, variables, *args, **kwargs):
 
 
 def to_port(x: np.ndarray) -> torch.Tensor:
-    """``(B, x, y, z, C)`` numpy -> the port's ``(B, C, x, y, z)`` view."""
-    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 4, 1, 2, 3)
+    """``(B, *spatial, C)`` numpy -> the port's ``(B, C, *spatial)`` view."""
+    n = x.ndim
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(
+        0, n - 1, *range(1, n - 1))
 
 
 def from_port(y: torch.Tensor) -> np.ndarray:
-    return y.detach().permute(0, 2, 3, 4, 1).float().numpy()
+    return y.detach().permute(0, *range(2, y.ndim), 1).float().numpy()

@@ -13,8 +13,11 @@ convolution layouts change.
 | ``bias`` | ``bias`` | — |
 | ``batch_stats .../mean``, ``var`` | ``running_mean``, ``running_var`` | — |
 
-The transpose convolution needs the flip because ``lax.conv_transpose``
-does not flip its kernel while ``F.conv_transpose3d`` is the adjoint of a
+The layouts are rank-generic: a 2D kernel is HWIO <-> OIHW, a 3D one DHWIO
+<-> OIDHW, and a convolution kernel is any leaf of rank 3 or more (every
+other leaf is a per-channel vector). The transpose convolution needs the
+flip, over its spatial axes only, because ``lax.conv_transpose`` does not
+flip its kernel while ``F.conv_transpose3d`` (or ``2d``) is the adjoint of a
 convolution; with the port's ``(in, out, ...)`` weight layout that is a
 flip plus the in/out order of a transpose weight.
 
@@ -35,7 +38,6 @@ from torch import nn
 
 _TO_PORT = {"kernel": "weight", "scale": "weight", "alpha": "weight",
             "bias": "bias", "mean": "running_mean", "var": "running_var"}
-_SPATIAL = (0, 1, 2)
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -47,18 +49,23 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def kernel_to_torch(kernel: np.ndarray, transpose: bool) -> np.ndarray:
-    """DHWIO conv kernel -> ``F.conv3d`` (OIDHW) or, for a transpose
-    convolution, ``F.conv_transpose3d`` (IODHW, spatially flipped)."""
+    """``(*k, I, O)`` conv kernel (HWIO, DHWIO) -> ``F.conv2d`` /
+    ``F.conv3d``'s ``(O, I, *k)`` or, for a transpose convolution,
+    ``F.conv_transpose2d`` / ``3d``'s ``(I, O, *k)``, spatially flipped."""
+    spatial = tuple(range(kernel.ndim - 2))
+    i, o = kernel.ndim - 2, kernel.ndim - 1
     if transpose:
-        return np.flip(kernel, _SPATIAL).transpose(3, 4, 0, 1, 2)
-    return kernel.transpose(4, 3, 0, 1, 2)
+        return np.flip(kernel, spatial).transpose(i, o, *spatial)
+    return kernel.transpose(o, i, *spatial)
 
 
 def kernel_to_flax(weight: np.ndarray, transpose: bool) -> np.ndarray:
     """Inverse of :func:`kernel_to_torch`."""
+    spatial = tuple(range(weight.ndim - 2))
+    k = tuple(range(2, weight.ndim))
     if transpose:
-        return np.flip(weight.transpose(2, 3, 4, 0, 1), _SPATIAL)
-    return weight.transpose(2, 3, 4, 1, 0)
+        return np.flip(weight.transpose(*k, 0, 1), spatial)
+    return weight.transpose(*k, 1, 0)
 
 
 def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -88,7 +95,7 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             collection, name = "batch_stats", leaf[len("running_"):]
         elif leaf == "bias":
             collection, name = "params", "bias"
-        elif arr.ndim == 5:
+        elif arr.ndim >= 3:  # a 2D or 3D convolution's kernel
             collection, name = "params", "kernel"
             arr = kernel_to_flax(arr, transpose=path[-2:-1] == ("deconv",))
         else:

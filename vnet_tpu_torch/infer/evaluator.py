@@ -1,13 +1,21 @@
-"""Whole-volume evaluation, 3D, one device.
+"""Whole-volume evaluation, 2D or 3D, one device.
 
 Counterpart of ``vnet_tpu/infer/evaluator.py`` (``evaluate_single_3d``,
-``evaluate_case``, ``evaluate``): per case, read the image channels, apply
-the evaluation transform chain (the port's ``data`` package), run the
-sliding window, argmax the blended softmax (or average the hard
-predictions, ``LabelMode: average_hard``), resample the label (nearest)
-and the probability maps (linear, softmax / weight) back onto the original
-image grid, then largest connected component, volume threshold and the
-optional probability masking, and write NIfTI files.
+``evaluate_single_2d``, ``evaluate_case``, ``evaluate``): per case, read the
+image channels, apply the evaluation transform chain (the port's ``data``
+package), run the sliding window, argmax the blended softmax (or average
+the hard predictions, ``LabelMode: average_hard``, 3D only), resample the
+label (nearest) and the probability maps (linear, softmax / weight) back
+onto the original image grid, then largest connected component, volume
+threshold and the optional probability masking, and write NIfTI files.
+
+A 2D ``PatchShape`` segments the volume slice by slice: the 3D transforms
+on the volume, then per z-slice ``extract_slice``, the 2D transforms and a
+pad to the patch; every plane of one shape goes through one slice-stacked
+engine call (ragged planes take the per-slice engine, one call each), and
+each slice's label and probabilities are resampled onto the original slice
+and pasted into the volume. ``EvalNorm: batch_stats`` keeps the reference's
+documented 2D behaviour (batch statistics of patches that straddle slices).
 
 ``Attention: true`` evaluates ``AttentionVNet`` and blends its first
 output, the refined logits. Weights come from ``state_dict`` or from the
@@ -19,6 +27,7 @@ device; the CPU runs only when ``device`` says so.
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from typing import Dict, List, Optional, Tuple
@@ -28,6 +37,7 @@ import torch
 
 from ..config import Config, load_pipeline
 from ..data import build_pipeline, list_cases
+from ..data.dataset2d import extract_slice
 from ..device import resolve_device
 from ..io import (LINEAR, NEAREST, MedicalImage, pad_to_size, read_image,
                   resample_like, write_image, zeros_like_geometry)
@@ -43,7 +53,7 @@ def _stack_channels(images: List[MedicalImage]) -> np.ndarray:
 
 
 class Evaluator:
-    """Config-driven evaluation engine (3D)."""
+    """Config-driven evaluation engine (2D or 3D, by ``PatchShape``)."""
 
     def __init__(self, config: Config,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
@@ -52,9 +62,6 @@ class Evaluator:
         self.t = config.train
         self.e = config.evaluate
         self.device = resolve_device(device)
-        if self.t.dimension != 3:
-            raise NotImplementedError(
-                "2D evaluation is not ported yet (ROADMAP.md)")
         net_cfg = self.t.network
         name = "AttentionVNet" if net_cfg.attention else net_cfg.name
         self.is_attention = name == "AttentionVNet"
@@ -78,7 +85,7 @@ class Evaluator:
             num_channels=net_cfg.num_channel, num_levels=net_cfg.num_levels,
             num_convolutions=net_cfg.num_convolutions,
             bottom_convolutions=net_cfg.bottom_convolutions, norm=norm,
-            dtype=dtype, device=self.device)
+            dtype=dtype, device=self.device, spatial_rank=self.t.dimension)
         if state_dict is None:
             state_dict = self._restore_state_dict()
         self.network.load_state_dict(state_dict)
@@ -86,12 +93,19 @@ class Evaluator:
         if self.e.label_mode not in ("argmax", "average_hard"):
             raise ValueError(f"unknown LabelMode {self.e.label_mode!r}")
         self.hard_mode = self.e.label_mode == "average_hard"
-        self.engine = SlidingWindowInference(
-            self._apply,
-            self.t.patch_shape, self.e.stride, self.e.batch_size,
-            self.t.num_classes, gaussian_blend=self.e.gaussian_blend,
-            hard_accumulate=self.hard_mode, blend_impl=self.e.blend_impl,
-            device=self.device)
+        if self.hard_mode and self.t.dimension == 2:
+            raise ValueError(
+                "LabelMode 'average_hard' is the legacy 3D evaluator mode "
+                "(the reference's evaluate.py is 3D-only)")
+        engine = functools.partial(
+            SlidingWindowInference, self._apply, self.t.patch_shape,
+            self.e.stride, self.e.batch_size, self.t.num_classes,
+            gaussian_blend=self.e.gaussian_blend,
+            blend_impl=self.e.blend_impl, device=self.device)
+        # 2D: self.engine is the per-slice engine for ragged planes
+        self.engine = engine(hard_accumulate=self.hard_mode)
+        self.engine_stacked = (engine(slice_stacked=True)
+                               if self.t.dimension == 2 else None)
 
     def _apply(self, patches: torch.Tensor) -> torch.Tensor:
         out = eval_apply(self.network, patches)
@@ -107,7 +121,7 @@ class Evaluator:
 
     def _eval_transforms(self):
         return build_pipeline(load_pipeline(self.e.pipeline_path), "evaluate",
-                              3)
+                              self.t.dimension)
 
     def _prepare_case(self, case_dir: str) -> Optional[dict]:
         images = []
@@ -151,12 +165,67 @@ class Evaluator:
                 LINEAR))
         return label, probs
 
+    def evaluate_single_2d(self, sample, transforms):
+        """Per-z-slice 2D sliding window, results pasted back into the
+        volume; returns ``(label, probs | None)`` on the original image
+        grid. All planes of one shape run as one slice-stacked grid, ragged
+        ones slice by slice: the same batches as JAX's engines."""
+        for tfm in transforms["3D"]:
+            sample = tfm(sample)
+        images3d, label3d = sample["image"], sample["label"]
+        size = images3d[0].GetSize()
+        out_label = np.zeros(size, np.uint8)
+        out_probs = (np.zeros((self.t.num_classes,) + size, np.float32)
+                     if self.e.probability_output else None)
+
+        planes, geoms, orig_slices = [], [], []
+        for z in range(size[2]):
+            slice_imgs = [extract_slice(im, z) for im in images3d]
+            orig_slices.append(slice_imgs[0])
+            s = {"image": slice_imgs, "label": extract_slice(label3d, z)}
+            for tfm in transforms["2D"]:
+                s = tfm(s)
+            slice_imgs = [pad_to_size(im, self.t.patch_shape, LINEAR)
+                          for im in s["image"]]
+            geoms.append(slice_imgs[0])
+            planes.append(_stack_channels(slice_imgs))
+
+        if planes and all(p.shape == planes[0].shape for p in planes):
+            acc3, w3 = self.engine_stacked(np.stack(planes))
+            acc3, w3 = acc3.cpu().numpy(), w3.cpu().numpy()
+            per_slice = list(zip(acc3, w3))
+        else:  # ragged transformed shapes: one engine call per slice
+            per_slice = []
+            for plane in planes:
+                acc, weight = self.engine(plane)
+                per_slice.append((acc.cpu().numpy(), weight.cpu().numpy()))
+
+        for z, (acc, weight) in enumerate(per_slice):
+            geom, orig_slice = geoms[z], orig_slices[z]
+            lbl = resample_like(
+                geom.like(np.argmax(acc, axis=-1).astype(np.uint8)),
+                orig_slice, NEAREST)
+            out_label[:, :, z] = lbl.data
+            if out_probs is not None:
+                for c in range(self.t.num_classes):
+                    p = acc[..., c] / np.maximum(weight, 1e-12)
+                    out_probs[c, :, :, z] = resample_like(
+                        geom.like(p.astype(np.float32)), orig_slice,
+                        LINEAR).data
+
+        label = images3d[0].like(out_label)
+        if out_probs is None:
+            return label, None
+        return label, [images3d[0].like(out_probs[c])
+                       for c in range(self.t.num_classes)]
+
     def evaluate_case(self, case_dir: str):
         sample = self._prepare_case(case_dir)
         if sample is None:
             return None
-        label, probs = self.evaluate_single_3d(sample,
-                                               self._eval_transforms())
+        evaluate = (self.evaluate_single_2d if self.t.dimension == 2
+                    else self.evaluate_single_3d)
+        label, probs = evaluate(sample, self._eval_transforms())
         if self.e.largest_connected_component:
             label = extract_largest_connected_component(label)
         if self.e.volume_threshold > 0:

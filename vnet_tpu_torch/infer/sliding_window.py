@@ -1,18 +1,31 @@
-"""Overlap-tiled sliding-window inference, 3D, one device.
+"""Overlap-tiled sliding-window inference, 2D or 3D, one device.
 
-Counterpart of ``vnet_tpu/infer/sliding_window.py`` for an unsharded 3D
-grid: the same patch grid (strided starts with the last start clamped), the
-same padding of the grid to whole batches (the last real row repeated with
+Counterpart of ``vnet_tpu/infer/sliding_window.py`` for an unsharded grid:
+the same patch grid (strided starts with the last start clamped), the same
+padding of the grid to whole batches (the last real row repeated with
 validity flag 0: it runs through the network, so with ``Norm:
 batch_stats`` it feeds the batch statistics exactly as in JAX, and adds zero
 blend weight), the same uniform or cosine window and the optional
 hard-prediction channel.
 
-The blend weight rides as channel 0 of a channels-last ``(X, Y, Z, 1 + C)``
-accumulator, and the result is ``(acc[..., 1:], acc[..., 0])`` as JAX's
-``run_pallas`` returns it. ``blend_impl`` picks how each batch is added:
+A 3D grid blends into a channels-last ``(X, Y, Z, 1 + C)`` accumulator,
+with the blend weight as channel 0, and the result is ``(acc[..., 1:],
+acc[..., 0])`` as JAX's ``run_pallas`` returns it. A 2D grid runs over a
+stack of slices (``slice_stacked``): the volume is ``(Z, H, W, C)``, the
+rows are ``(z, i, j)``, every real z crossed with the ``(H, W)`` grid in
+JAX's order, so batches straddle slices exactly as in JAX, and each
+contribution is a ``(1, px, py)`` block of a ``(Z, H, W, 1 + C)``
+accumulator: the same 3D blend with patch depth 1. The per-slice engine (a
+2D engine without ``slice_stacked``, volume ``(H, W, C)``) is the stacked
+engine on a stack of one slice; its rows and batches are JAX's per-slice
+engine's. JAX's z bucket, which pads the stack to a multiple of 8 slices so
+that one XLA compile serves several slice counts, is not ported: real rows
+never reference the padded slices and the extra rows carry flag 0, so the
+results are the same batch for batch.
 
-* ``"auto"`` / ``"pallas"``: ``ops.blend.blend_accumulate_patches`` — the
+``blend_impl`` picks how each batch is added:
+
+* ``"auto"`` / ``"pallas"``: ``ops.blend.blend_accumulate_patches``, the
   CUDA kernel on a CUDA device;
 * ``"xla"``: ``ops.blend.blend_accumulate_plain``, per-patch slice-adds, the
   counterpart of JAX's XLA path.
@@ -47,7 +60,7 @@ def patch_starts_1d(dim: int, patch: int, stride: int) -> list:
 
 def build_patch_grid(volume_shape: Sequence[int], patch_shape: Sequence[int],
                      stride: Sequence[int]) -> np.ndarray:
-    """All patch start corners, ``(N, rank)`` int32, i/j/k order."""
+    """All patch start corners, ``(N, rank)`` int32, i/j(/k) order."""
     axes = [patch_starts_1d(volume_shape[i], patch_shape[i], stride[i])
             for i in range(len(patch_shape))]
     grids = np.meshgrid(*axes, indexing="ij")
@@ -70,17 +83,20 @@ class SlidingWindowInference:
     """Overlap-tiled inference for one network on one device.
 
     Args:
-      apply_fn: ``apply_fn(patches) -> logits``, ``(B, px, py, pz, C_in)``
-        to ``(B, px, py, pz, num_classes)``, eval mode.
-      patch_shape / stride: 3-tuples (``PatchShape`` /
+      apply_fn: ``apply_fn(patches) -> logits``, ``(B, *patch, C_in)`` to
+        ``(B, *patch, num_classes)``, eval mode.
+      patch_shape / stride: 2- or 3-tuples (``PatchShape`` /
         ``EvaluationSetting.Stride``).
       batch_size: patches per forward pass.
       num_classes: output channels.
       gaussian_blend: cosine-window blending instead of uniform.
       hard_accumulate: also accumulate the per-patch argmax (as float) in
-        channel 0 of the returned accumulator.
+        channel 0 of the returned accumulator (not with ``slice_stacked``,
+        as in JAX).
       blend_impl: ``"auto"``, ``"pallas"`` (the blend kernel) or ``"xla"``
         (plain slice-adds).
+      slice_stacked: a 2D patch grid over a stack of slices ``(Z, H, W,
+        C)``.
       device: where the volume, the accumulators and the network run;
         ``"cuda"`` by default, which raises where torch sees no card.
     """
@@ -88,13 +104,21 @@ class SlidingWindowInference:
     def __init__(self, apply_fn: Callable, patch_shape: Sequence[int],
                  stride: Sequence[int], batch_size: int, num_classes: int,
                  gaussian_blend: bool = False, hard_accumulate: bool = False,
-                 blend_impl: str = "auto", device="cuda"):
+                 blend_impl: str = "auto", slice_stacked: bool = False,
+                 device="cuda"):
         self.apply_fn = apply_fn
         self.patch_shape = tuple(int(p) for p in patch_shape)
         self.stride = tuple(int(s) for s in stride)
-        if len(self.patch_shape) != 3:
-            raise NotImplementedError(
-                "the port's sliding window is 3D only so far (ROADMAP.md)")
+        self.rank = len(self.patch_shape)
+        if self.rank not in (2, 3):
+            raise ValueError(f"patch_shape must be 2D or 3D, got "
+                             f"{self.patch_shape}")
+        self.slice_stacked = bool(slice_stacked)
+        if self.slice_stacked and self.rank != 2:
+            raise ValueError("slice_stacked requires a 2D patch shape")
+        if self.slice_stacked and hard_accumulate:
+            raise ValueError("slice_stacked excludes hard_accumulate "
+                             "(the legacy averaging mode is 3D-only)")
         self.batch_size = int(batch_size)
         self.num_classes = int(num_classes)
         self.hard_accumulate = bool(hard_accumulate)
@@ -116,16 +140,30 @@ class SlidingWindowInference:
         return probs
 
     def __call__(self, volume: np.ndarray):
-        """Run the full grid over ``volume`` (``(X, Y, Z, C)``, at least
-        patch-sized per axis). Returns ``(softmax_sum, weight)`` as tensors
-        on the device: ``argmax(softmax_sum)`` is the label and
-        ``softmax_sum / weight`` the probability maps."""
-        spatial = tuple(volume.shape[:-1])
-        for i in range(3):
+        """Run the full grid over ``volume``: ``(X, Y, Z, C)`` in 3D, ``(Z,
+        H, W, C)`` slice-stacked, ``(H, W, C)`` for one slice, at least
+        patch-sized per patch axis. Returns ``(softmax_sum, weight)`` as
+        tensors on the device, over the volume's spatial axes:
+        ``argmax(softmax_sum)`` is the label and ``softmax_sum / weight``
+        the probability maps."""
+        one_slice = self.rank == 2 and not self.slice_stacked
+        if one_slice:
+            volume = np.asarray(volume)[None]
+        stacked = self.rank == 2
+        spatial = tuple(volume.shape[1:-1] if stacked else volume.shape[:-1])
+        for i in range(self.rank):
             if spatial[i] < self.patch_shape[i]:
                 raise ValueError(f"volume {tuple(volume.shape)} smaller than "
                                  f"patch {self.patch_shape}; pad first")
         starts = build_patch_grid(spatial, self.patch_shape, self.stride)
+        block = self.patch_shape
+        if stacked:
+            # every real z crossed with the (H, W) grid, in JAX's order
+            m, nz = starts.shape[0], volume.shape[0]
+            zs = np.repeat(np.arange(nz, dtype=np.int32), m)
+            starts = np.concatenate([zs[:, None], np.tile(starts, (nz, 1))],
+                                    axis=-1)
+            block = (1,) + self.patch_shape
         n, bsz = starts.shape[0], self.batch_size
         total = -(-n // bsz) * bsz
         if total > n:
@@ -138,21 +176,28 @@ class SlidingWindowInference:
         vol = torch.from_numpy(
             np.ascontiguousarray(volume, np.float32)).to(dev)
         window = torch.from_numpy(self.blend_window).to(dev)
-        px, py, pz = self.patch_shape
         acc_channels = self.num_classes + (1 if self.hard_accumulate else 0)
-        acc = torch.zeros(spatial + (1 + acc_channels,), dtype=torch.float32,
-                          device=dev)
+        acc = torch.zeros(tuple(volume.shape[:-1]) + (1 + acc_channels,),
+                          dtype=torch.float32, device=dev)
         blend = (blend_accumulate_patches if self.use_kernel
                  else blend_accumulate_plain)
+        ones = (1,) * self.rank
+        bx, by, bz = block
 
         for lo in range(0, total, bsz):
             rows = starts[lo:lo + bsz]
-            patches = torch.stack([vol[x:x + px, y:y + py, z:z + pz]
+            patches = torch.stack([vol[x:x + bx, y:y + by, z:z + bz]
                                    for x, y, z in rows.tolist()])
+            patches = patches.reshape((bsz,) + self.patch_shape
+                                      + (vol.shape[-1],))
             probs = self._probs(patches) * window[..., None]
             flag = torch.from_numpy(flags[lo:lo + bsz]).to(dev)
-            wb = window[None, ..., None].expand(bsz, px, py, pz, 1)
+            wb = window[None, ..., None].expand(
+                (bsz,) + self.patch_shape + (1,))
             contrib = (torch.cat([wb, probs], dim=-1)
-                       * flag.view(bsz, 1, 1, 1, 1))
-            blend(acc, contrib.contiguous(), torch.from_numpy(rows))
+                       * flag.view((bsz,) + ones + (1,)))
+            blend(acc, contrib.reshape((bsz,) + block + (-1,)).contiguous(),
+                  torch.from_numpy(rows))
+        if one_slice:
+            acc = acc[0]
         return acc[..., 1:], acc[..., 0]

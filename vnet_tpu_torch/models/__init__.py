@@ -1,7 +1,8 @@
 """Model factory — counterpart of ``vnet_tpu/models/__init__.py``.
 
-``VNet`` and the attention-gated ``AttentionVNet`` are ported; the other
-names of the JAX zoo raise ``NotImplementedError`` (see ROADMAP.md).
+``VNet`` (2D or 3D) and the attention-gated ``AttentionVNet`` (3D) are
+ported; the other names of the JAX zoo, and a 2D ``AttentionVNet``, raise
+``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,14 +37,16 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
                   device="cuda",
                   generator: Optional[torch.Generator] = None,
                   dropout_impl: str = "xla", dw_impl: str = "xla",
-                  attention_channels: int = 64) -> torch.nn.Module:
+                  attention_channels: int = 64,
+                  spatial_rank: int = 3) -> torch.nn.Module:
     """Instantiate a network from config values. Parameters are
     initialised on the CPU from ``generator`` (flax's initialisers: Xavier
     uniform convs, truncated-normal attention-head convs, zero biases,
     PReLU 0.1, unit BN scale) and then moved to ``device`` (``cuda`` unless
     the caller asks for the CPU; no CUDA device raises).
     ``AttentionVNet`` passes ``dropout_impl`` to the backbone and the heads
-    and ``dw_impl`` to the backbone."""
+    and ``dw_impl`` to the backbone. ``spatial_rank`` (2 or 3) is the
+    number of spatial axes, ``len(PatchShape)``."""
     device = resolve_device(device)
     if name == "FCN":
         raise NotImplementedError("Network to be developed")
@@ -52,6 +55,9 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
             f"network {name!r} is not ported to PyTorch yet (ROADMAP.md)")
     if name not in ("VNet", "AttentionVNet"):
         raise ValueError(f"Invalid network: {name!r}")
+    if name == "AttentionVNet" and spatial_rank != 3:
+        raise NotImplementedError(
+            "a 2D AttentionVNet is not ported to PyTorch yet (ROADMAP.md)")
     kw = dict(num_classes=num_classes, in_channels=in_channels,
               num_channels=num_channels, num_levels=num_levels,
               num_convolutions=tuple(num_convolutions),
@@ -62,7 +68,7 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
     if name == "AttentionVNet":
         net = AttentionGatedVNet(attention_channels=attention_channels, **kw)
     else:
-        net = VNet(**kw)
+        net = VNet(spatial_rank=spatial_rank, **kw)
     return net.to(device)
 
 

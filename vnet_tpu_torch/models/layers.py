@@ -1,18 +1,19 @@
-"""Layer primitives of the V-Net, 3D, direct convolutions.
+"""Layer primitives of the V-Net, 2D or 3D, direct convolutions.
 
-Counterpart of ``vnet_tpu/models/layers.py``. Tensors inside the network
-are logically ``(B, C, x, y, z)`` and physically channels-last
-(``torch.channels_last_3d``), the layout the JAX package keeps as
-``(B, x, y, z, C)``; the public entry points (``VNet.forward``) take and
-return the JAX layout.
+Counterpart of ``vnet_tpu/models/layers.py``, rank-generic as it is: the
+spatial rank is the kernel's length (convolutions) or ``x.ndim - 2``
+(norms, activations). Tensors inside the network are logically ``(B, C,
+*spatial)`` and physically channels-last (``torch.channels_last_3d``, or
+``torch.channels_last`` in 2D), the layout the JAX package keeps as ``(B,
+*spatial, C)``; the public entry points (``VNet.forward``) take and return
+the JAX layout.
 
 Sub-module names mirror the flax variable paths (``conv_1``, ``norm_1.bn``,
 ``act_1.prelu``) so that ``vnet_tpu_torch/convert.py`` maps weights
 mechanically. Leaf parameters use PyTorch's names: ``weight``/``bias`` for
-convolutions (``(O, I, kx, ky, kz)``; transpose convolutions
-``(I, O, kx, ky, kz)``), ``weight``/``bias`` and the buffers
-``running_mean``/``running_var`` for batch norm, ``weight`` for PReLU's
-per-channel slope.
+convolutions (``(O, I, *k)``; transpose convolutions ``(I, O, *k)``),
+``weight``/``bias`` and the buffers ``running_mean``/``running_var`` for
+batch norm, ``weight`` for PReLU's per-channel slope.
 
 Numerics follow flax: BatchNorm momentum 0.99 and epsilon 1e-3, statistics
 in float32 as ``E[x^2] - E[x]^2`` (clipped at 0), the running variance is
@@ -22,8 +23,8 @@ to the compute dtype (``x.dtype``) at use, as the JAX modules do.
 
 Training mode: batch norms update their running averages in place under
 ``no_grad``; ``Dropout`` runs ``ops/dropout.py`` (the CUDA kernel on the
-card) and ``SpatialConv(dw_impl="pallas")`` takes its weight gradient from
-``ops/dw_conv.py``.
+card) and a 3D ``SpatialConv(dw_impl="pallas")`` takes its weight gradient
+from ``ops/dw_conv.py``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ ACTIVATIONS = ("relu", "prelu", "lrelu")
 _EPS = 1e-3
 _MOMENTUM = 0.99
 DW_IMPLS = ("xla", "custom", "pallas")
+_CONV = {2: F.conv2d, 3: F.conv3d}  # by spatial rank
+_CONV_TRANSPOSE = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
 
 def _channel_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -243,19 +246,25 @@ class TiledInputBatchNorm(nn.Module):
 
 
 class SpatialConv(nn.Module):
-    """3D convolution with XLA ``"SAME"`` padding, direct mode only.
+    """2D or 3D convolution (``len(kernel_size)``) with XLA ``"SAME"``
+    padding, direct mode only.
 
-    ``weight`` is ``(out, in, kx, ky, kz)``; Xavier-uniform init, zero bias.
-    ``dw_impl`` selects the weight gradient of stride-1 convolutions:
-    ``"pallas"`` takes it from ``ops/dw_conv.py`` (the CUDA kernel on the
-    card), with the bias added outside that autograd Function as JAX adds
-    it; ``"xla"`` and ``"custom"`` (the same math in the JAX package,
-    ``ops/conv_vjp.py``) keep torch autograd of ``F.conv3d``.
+    ``weight`` is ``(out, in, *kernel_size)``; Xavier-uniform init, zero
+    bias; ``strides`` default to 1. ``dw_impl`` selects the weight gradient
+    of stride-1 convolutions: ``"pallas"`` takes it from ``ops/dw_conv.py``
+    (the CUDA kernel on the card) at rank 3, with the bias added outside
+    that autograd Function as JAX adds it; ``"xla"`` and ``"custom"`` (the
+    same math in the JAX package, ``ops/conv_vjp.py``) keep torch autograd
+    of ``F.conv3d`` / ``F.conv2d``. The dW kernel is rank-3 only, as JAX's
+    is: at rank 2 ``"pallas"`` keeps autograd of ``F.conv2d``, exactly as
+    JAX's ``conv_pallas_dw`` takes its XLA weight gradient for an operand
+    ``dw_conv_supported`` refuses (``vnet_tpu/ops/pallas/dw_conv.py``). That
+    is a static routing by rank that matches the reference, not a fallback.
     """
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int],
-                 strides: Sequence[int] = (1, 1, 1),
+                 strides: Optional[Sequence[int]] = None,
                  generator: Optional[torch.Generator] = None,
                  dw_impl: str = "xla"):
         super().__init__()
@@ -264,7 +273,11 @@ class SpatialConv(nn.Module):
                              f"{DW_IMPLS}")
         self.dw_impl = dw_impl
         self.kernel_size = tuple(int(k) for k in kernel_size)
-        self.strides = tuple(int(s) for s in strides)
+        if len(self.kernel_size) not in _CONV:
+            raise ValueError(f"SpatialConv is 2D or 3D, got kernel "
+                             f"{self.kernel_size}")
+        self.strides = (tuple(int(s) for s in strides) if strides is not None
+                        else (1,) * len(self.kernel_size))
         self.weight = nn.Parameter(
             torch.empty((features, in_features) + self.kernel_size))
         rf = math.prod(self.kernel_size)
@@ -273,7 +286,8 @@ class SpatialConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        if self.dw_impl == "pallas" and self.strides == (1, 1, 1):
+        if (self.dw_impl == "pallas" and len(self.kernel_size) == 3
+                and self.strides == (1, 1, 1)):
             y = conv3d_dw(x, self.weight.to(x.dtype))
             return y + _channel_view(self.bias.to(x.dtype), y.ndim)
         pads = [same_pads(n, k, s) for n, k, s in
@@ -283,18 +297,19 @@ class SpatialConv(nn.Module):
         else:
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
             padding = 0
-        return F.conv3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        self.strides, padding)
+        conv = _CONV[len(self.kernel_size)]
+        return conv(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                    self.strides, padding)
 
 
 class SpatialConvTranspose(nn.Module):
     """``lax.conv_transpose(..., "SAME")`` with kernel == stride (the
     V-Net's up-convolution), output ``stride * input``.
 
-    ``weight`` is ``(in, out, kx, ky, kz)`` as ``F.conv_transpose3d`` takes
-    it. ``lax.conv_transpose`` does not flip the kernel and PyTorch's
-    transpose convolution is the adjoint of a convolution, so the JAX
-    kernel maps here spatially flipped (``convert.py``).
+    ``weight`` is ``(in, out, *kernel_size)`` as ``F.conv_transpose3d``
+    (or ``2d``) takes it. ``lax.conv_transpose`` does not flip the kernel
+    and PyTorch's transpose convolution is the adjoint of a convolution, so
+    the JAX kernel maps here spatially flipped (``convert.py``).
     """
 
     def __init__(self, in_features: int, features: int,
@@ -303,6 +318,9 @@ class SpatialConvTranspose(nn.Module):
         super().__init__()
         self.kernel_size = tuple(int(k) for k in kernel_size)
         self.strides = tuple(int(s) for s in strides)
+        if len(self.kernel_size) not in _CONV_TRANSPOSE:
+            raise ValueError(f"SpatialConvTranspose is 2D or 3D, got kernel "
+                             f"{self.kernel_size}")
         if self.kernel_size != self.strides:
             raise NotImplementedError(
                 "SpatialConvTranspose supports kernel == stride only "
@@ -315,8 +333,9 @@ class SpatialConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        return F.conv_transpose3d(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype), self.strides)
+        conv = _CONV_TRANSPOSE[len(self.kernel_size)]
+        return conv(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                    self.strides)
 
 
 class Dropout(nn.Module):
@@ -350,15 +369,16 @@ class Dropout(nn.Module):
 
 class DownConv(nn.Module):
     """Stride-``factor`` convolution doubling channels, then norm and
-    activation (children ``conv``, ``norm``, ``act``)."""
+    activation (children ``conv``, ``norm``, ``act``), over ``rank``
+    spatial axes."""
 
     def __init__(self, channels: int, factor: int = 2, norm: str = "batch",
                  activation: str = "prelu",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, rank: int = 3):
         super().__init__()
         out = channels * factor
-        self.conv = SpatialConv(channels, out, (factor,) * 3, (factor,) * 3,
-                                generator=generator)
+        self.conv = SpatialConv(channels, out, (factor,) * rank,
+                                (factor,) * rank, generator=generator)
         self.norm = Norm(norm, out)
         self.act = Activation(activation, out)
 
@@ -368,15 +388,17 @@ class DownConv(nn.Module):
 
 class UpConv(nn.Module):
     """Stride-``factor`` transpose convolution halving channels, then norm
-    and activation (children ``deconv``, ``norm``, ``act``)."""
+    and activation (children ``deconv``, ``norm``, ``act``), over ``rank``
+    spatial axes."""
 
     def __init__(self, channels: int, factor: int = 2, norm: str = "batch",
                  activation: str = "prelu",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, rank: int = 3):
         super().__init__()
         out = channels // factor
-        self.deconv = SpatialConvTranspose(channels, out, (factor,) * 3,
-                                           (factor,) * 3, generator=generator)
+        self.deconv = SpatialConvTranspose(channels, out, (factor,) * rank,
+                                           (factor,) * rank,
+                                           generator=generator)
         self.norm = Norm(norm, out)
         self.act = Activation(activation, out)
 

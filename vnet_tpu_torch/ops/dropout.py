@@ -9,8 +9,9 @@ the three flavours of ``vnet_tpu/models/layers.py::Dropout``:
 
 ``u`` is a 32-bit word of Philox4x32-10 keyed by ``(seed, stream)`` and
 counted by the element's position in the JAX layout's ``(B, X, Y, Z, C)``
-order (``csrc/dropout.cu``). The backward pass applies the same function to
-the gradient with the same key, so nothing but the key is saved. The
+order, or ``(B, H, W, C)`` for the 2D network (``csrc/dropout.cu``). The
+backward pass applies the same function to the gradient with the same key,
+so nothing but the key is saved. The
 threshold, factor and operation of each flavour (:func:`dropout_params`):
 
 * ``pallas``: ``thr = min(round(keep * 2**32), 2**32 - 1)``, survivors
@@ -106,24 +107,30 @@ def keep_mask(n: int, seed: int, stream: int, thr: int,
     return torch.cat(parts)[:n]
 
 
+_CHANNELS_LAST = {4: torch.channels_last, 5: torch.channels_last_3d}
+
+
 def _storage_order(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with its elements in counter order: a 5D ``(B, C, X, Y, Z)``
-    tensor becomes a channels-last one (the JAX layout's order), any other
-    a row-major contiguous one."""
-    if x.dim() == 5:
-        return x.contiguous(memory_format=torch.channels_last_3d)
+    """``x`` with its elements in counter order: a 4D ``(B, C, H, W)`` or 5D
+    ``(B, C, X, Y, Z)`` tensor becomes a channels-last one (the JAX layout's
+    order), any other a row-major contiguous one."""
+    if x.dim() in _CHANNELS_LAST:
+        return x.contiguous(memory_format=_CHANNELS_LAST[x.dim()])
     return x.contiguous()
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
     """1-D view of a :func:`_storage_order` tensor in storage order."""
-    return (x.permute(0, 2, 3, 4, 1) if x.dim() == 5 else x).reshape(-1)
+    if x.dim() in _CHANNELS_LAST:
+        x = x.permute(0, *range(2, x.dim()), 1)
+    return x.reshape(-1)
 
 
 def _unflat(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    if like.dim() == 5:
+    if like.dim() in _CHANNELS_LAST:
         b, c, *sp = like.shape
-        return flat.view(b, *sp, c).permute(0, 4, 1, 2, 3)
+        return flat.view(b, *sp, c).permute(0, like.dim() - 1,
+                                            *range(1, like.dim() - 1))
     return flat.view(like.shape)
 
 
@@ -162,8 +169,8 @@ def dropout_apply(x: torch.Tensor, seed: int, stream: int, thr: int,
                   factor: float, divide: bool) -> torch.Tensor:
     """``where(u < thr, x / factor if divide else x * factor, 0)`` with
     ``u`` from the key ``(seed, stream)`` (:func:`dropout_params` gives
-    ``thr, factor, divide``); returns a new tensor, channels-last for 5D
-    input. CUDA tensors launch ``csrc/dropout.cu``; CPU tensors take
+    ``thr, factor, divide``); returns a new tensor, channels-last for 4D
+    and 5D input. CUDA tensors launch ``csrc/dropout.cu``; CPU tensors take
     :func:`dropout_plain`."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"dropout takes float32, bfloat16 or float16, got "

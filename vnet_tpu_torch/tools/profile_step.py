@@ -3,6 +3,7 @@
     python -m vnet_tpu_torch.tools.profile_step [--batch 96] [--impl pallas]
     python -m vnet_tpu_torch.tools.profile_step --attention --batch 8 \
         --impl xla
+    python -m vnet_tpu_torch.tools.profile_step --config2d --impl xla
 
 Builds ``bench.py``'s flagship training step (the 3D V-Net of
 ``configs/config.json`` at full width, bf16, 64^3 patches, weighted
@@ -10,7 +11,10 @@ Sørensen, Adam, random data made from a seed as ``bench.py`` makes it), or
 with ``--attention`` the attention-gated step of
 ``configs/config_attention_multimodal.json`` (the same backbone on two
 modalities, attention heads of 64 channels, 2 classes, mixed Sørensen with
-alpha 0.5 plus the l2 distance loss x100, random distance maps), times
+alpha 0.5 plus the l2 distance loss x100, random distance maps), or with
+``--config2d`` the 2D step of ``configs/config_2d.json`` (the same network
+at rank 2, 256^2 patches, 2 classes, Sørensen, batch 32 unless ``--batch``
+says otherwise), times
 ``--steps`` steps after a warm-up one, then records one more with
 ``torch.profiler`` and prints the device time by kernel group, the device's
 busy and idle share of the step, and the peak device memory. Device busy
@@ -38,6 +42,8 @@ from ..train.optim import build_optimizer
 
 PATCH = (64, 64, 64)
 NUM_CLASSES = 3
+PATCH_2D = (256, 256)  # configs/config_2d.json
+BATCH_2D = 32
 
 # kernel-name fragments -> group, first match wins
 GROUPS = (
@@ -104,6 +110,29 @@ def attention_step(impl: str, batch: int, device="cuda", seed: int = 0):
     return TrainState(net, opt), step, images, labels
 
 
+def config2d_step(impl: str, batch: int, device="cuda", seed: int = 0):
+    """``(state, step_fn, images, labels)`` of ``configs/config_2d.json``'s
+    step: the 2D V-Net at full width (16 channels, 4 levels, convolutions
+    (1, 2, 3, 3), bottom 3, PReLU, batch norm, dropout 0.01), bf16, 256^2
+    patches, 2 classes, Sørensen, Adam 1e-2 decayed 0.99 every 100 steps."""
+    net = build_network("VNet", num_classes=2, dropout_rate=0.01,
+                        norm="batch", dtype=torch.bfloat16, device=device,
+                        generator=torch.Generator().manual_seed(seed),
+                        dropout_impl=impl, dw_impl=impl, spatial_rank=2)
+    opt, schedule = build_optimizer(
+        OptimizerConfig(name="Adam", initial_learning_rate=1e-2,
+                        decay_factor=0.99, decay_steps=100),
+        net.parameters())
+    step = make_train_step(LossConfig(name="sorensen", weights=()), 2,
+                           schedule, compute_metrics=False)
+    host = np.random.default_rng(seed)
+    images = torch.from_numpy(host.normal(size=(batch,) + PATCH_2D + (1,))
+                              .astype(np.float32)).to(device)
+    labels = torch.from_numpy((host.random((batch,) + PATCH_2D) > 0.7)
+                              .astype(np.int32)).to(device)
+    return TrainState(net, opt), step, images, labels
+
+
 def timed_steps(state, step, images, labels, n: int):
     """Host-clock ms of ``n`` synchronised steps and their losses."""
     times, losses = [], []
@@ -156,16 +185,27 @@ def breakdown(prof):
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m vnet_tpu_torch.tools."
                                           "profile_step")
-    parser.add_argument("--batch", type=int, default=96)
+    parser.add_argument("--batch", type=int, default=None,
+                        help="patches per step (96; 32 with --config2d)")
     parser.add_argument("--impl", default="pallas",
                         choices=["pallas", "bits8", "xla"])
     parser.add_argument("--steps", type=int, default=3)
-    parser.add_argument("--attention", action="store_true",
-                        help="the attention-gated step instead")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--attention", action="store_true",
+                      help="the attention-gated step instead")
+    mode.add_argument("--config2d", action="store_true",
+                      help="configs/config_2d.json's 2D step instead")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
-    build = attention_step if args.attention else flagship_step
+    if args.attention:
+        build, what, shape = attention_step, "attention step", "64^3"
+    elif args.config2d:
+        build, what, shape = config2d_step, "config_2d.json step", "256^2"
+    else:
+        build, what, shape = flagship_step, "flagship step", "64^3"
+    if args.batch is None:
+        args.batch = BATCH_2D if args.config2d else 96
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -180,8 +220,8 @@ def main(argv=None):
         torch.cuda.synchronize()
     span, busy, groups, kernels = breakdown(prof)
     print(f"card: {smi}")
-    what = "attention step" if args.attention else "flagship step"
-    print(f"{what}, impl {args.impl}, batch {args.batch}, 64^3 bf16: step ms "
+    print(f"{what}, impl {args.impl}, batch {args.batch}, {shape} bf16: "
+          f"step ms "
           f"{[round(t, 1) for t in times]} (first is warm-up), median "
           f"{statistics.median(times[1:]):.1f} ms, "
           f"{args.batch / statistics.median(times[1:]) * 1e3:.1f} "

@@ -15,18 +15,25 @@ K > 1 runs K steps back to back on K buffered batches (the JAX package's
 in JAX. ``network_config.json`` beside the checkpoints records the
 architecture, key for key as the JAX trainer writes it.
 
-``Attention: true`` trains ``AttentionVNet``: the loader adds the distance
+A 2D ``PatchShape`` trains the 2D network (``spatial_rank=2``) on slices:
+``NiftiDataset2D`` with the pipeline's ``{"3D", "2D"}`` chains,
+``MinPixel``, ``DropRatio`` and ``CacheCases``, as the JAX trainer builds
+it; the test phase's crops go through ``eval_step`` at their own size (the
+network is fully convolutional).
+
+``Attention: true`` trains ``AttentionVNet`` (3D): the loader adds the distance
 map of each label and the step adds the gate's distance loss to the
 segmentation loss. ``DeviceAugment: true`` takes ``RandomFlip`` and
 ``RandomNoise`` out of the host chain and runs them in the step on the
 device (``data/device_aug.py``), from a generator seeded by the step's
-dropout seed, so a resumed run repeats its augmentation.
+dropout seed, so a resumed run repeats its augmentation; in 2D the flip
+stays in the host chain, as in JAX.
 
 Logs: each tag directory ``LogDir/<tag>/`` gets a TensorBoard events file
 (``train/events.py``; the JAX trainer's tags) and ``scalars.jsonl`` (one
 JSON object per value: ``tag``, ``step``, ``value``). ``ImageLog`` adds the
 input, label, softmax and prediction images at every ``LogInterval``
-checkpoint and every test step. 2D patches and multi-device meshes raise
+checkpoint and every test step. Multi-device meshes raise
 ``NotImplementedError`` (ROADMAP.md).
 """
 
@@ -43,7 +50,8 @@ import numpy as np
 import torch
 
 from ..config import Config, load_pipeline
-from ..data import BatchLoader, NiftiDataset3D, build_pipeline
+from ..data import (BatchLoader, NiftiDataset2D, NiftiDataset3D,
+                    build_pipeline)
 from ..data.device_aug import flip_coins, flip_where, random_noise
 from ..data.transforms3d import RandomFlip, RandomNoise
 from ..device import resolve_device
@@ -92,8 +100,8 @@ def make_train_step(loss_cfg, num_classes: int,
                     is_attention: bool = False):
     """The train step ``(state, images, labels, dropout_seed,
     distance_maps=None, device_augment=None) -> TrainStepOutput``: images
-    ``(B, x, y, z, C)``
-    float, labels ``(B, x, y, z)`` int and, for an attention network,
+    ``(B, *spatial, C)``
+    float, labels ``(B, *spatial)`` int and, for an attention network,
     distance maps ``(B, x, y, z)`` float on the network's device. Updates
     ``state`` in place (parameters, running averages, optimizer state,
     ``step``); the gradients stay in the parameters' ``.grad``. Returned
@@ -202,9 +210,6 @@ class Trainer:
         self.device = resolve_device(device)
         self.log_enabled = log
         net_cfg = t.network
-        if t.dimension != 3:
-            raise NotImplementedError("2D training is not ported yet "
-                                      "(ROADMAP.md)")
         if t.mesh_space_parallel > 1 or t.mesh_dcn_parallel > 1:
             raise NotImplementedError("multi-device meshes are not ported "
                                       "yet (ROADMAP.md)")
@@ -220,7 +225,8 @@ class Trainer:
             bottom_convolutions=net_cfg.bottom_convolutions,
             norm=net_cfg.norm, dtype=self.dtype, device=self.device,
             generator=torch.Generator().manual_seed(t.seed),
-            dropout_impl=net_cfg.dropout_impl, dw_impl=net_cfg.dw_impl)
+            dropout_impl=net_cfg.dropout_impl, dw_impl=net_cfg.dw_impl,
+            spatial_rank=t.dimension)
         self.optimizer, self.lr_schedule = build_optimizer(
             t.optimizer, self.network.parameters())
         self._train_step_fn = make_train_step(
@@ -263,14 +269,23 @@ class Trainer:
     # ------------------------------------------------------------------
     def build_loader(self, data_dir: str, phase: str) -> BatchLoader:
         t = self.t
-        transforms = build_pipeline(load_pipeline(t.pipeline_path), phase, 3)
-        if t.device_augment and phase == "train":
+        transforms = build_pipeline(load_pipeline(t.pipeline_path), phase,
+                                    t.dimension)
+        if t.device_augment and phase == "train" and t.dimension == 3:
             transforms = self._extract_device_augment(transforms)
-        ds = NiftiDataset3D(
-            data_dir, t.image_filenames, t.label_filename,
-            transforms=transforms, train=True,
-            labels=t.segmentation_classes, attention=self.is_attention,
-            cache_cases=t.cache_cases)
+        if t.dimension == 2:
+            ds = NiftiDataset2D(
+                data_dir, t.image_filenames, t.label_filename,
+                transforms3D=transforms["3D"], transforms2D=transforms["2D"],
+                train=True, labels=t.segmentation_classes,
+                min_pixel=t.min_pixel, drop_ratio=t.drop_ratio,
+                cache_cases=t.cache_cases)
+        else:
+            ds = NiftiDataset3D(
+                data_dir, t.image_filenames, t.label_filename,
+                transforms=transforms, train=True,
+                labels=t.segmentation_classes, attention=self.is_attention,
+                cache_cases=t.cache_cases)
         return BatchLoader(ds, t.batch_size, shuffle=True,
                            drop_remainder=True, num_workers=t.loader_workers,
                            backend=t.loader_backend, seed=t.seed)
