@@ -10,14 +10,19 @@ non-zero before the result line:
    dropout, dW, BN statistics, fused tail, row blend) built from source in
    parallel, one ``nvcc`` each, with their build times and ptxas registers
    and spills; the tensor-core instructions in the SASS of the dW library's
-   bf16 kernels (``cuobjdump --dump-sass``);
+   bf16 kernels (``cuobjdump --dump-sass``); the dropout kernels' SASS: no
+   local memory, Philox's wide multiplies, its key schedule made once per
+   loop (not per call), 16-byte loads and stores;
 2. blend kernel vs its plain PyTorch version on the card, at the slice's
    shapes (10 contributions of (256, 256, 32, 4) f32 into a (384, 384, 64, 4)
    accumulator, starts overlapping on every axis), at the dense-stride
    (LiTS) geometry (the first 10 patches of the stride-16 grid of the same
-   shapes) and at a ragged geometry (odd extents, clamped starts, C = 3):
+   shapes), at a ragged geometry (odd extents, clamped starts, C = 3) and
+   at the 2D evaluation's stacked geometry (10 contributions of (1, 256,
+   256, 3) into (64, 384, 384, 3) at the first 10 ``(z, i, j)`` rows):
    results must be bitwise equal (same adds in the same order), the first
-   two on the kernel's float4 path and the ragged one on its float path;
+   two on the kernel's float4 path, the ragged one on its float path and
+   the stacked one on the path its geometry implies;
    the kernel's device time from a ``torch.profiler`` trace, the wrapper
    call and the plain version with CUDA events (median of 25), beside the
    byte bound of the covered elements;
@@ -36,11 +41,17 @@ non-zero before the result line:
    channels-last, the main path's largest dropout, for ``pallas`` and
    ``bits8`` at the config's rate 0.01: bitwise equal, keep fraction within
    5 sigma, backward mask = forward mask for a gradient that is not
-   channels-last; kernel, plain and ``F.dropout`` times. Then the ``xla``
-   flavour (flax's ``x / keep_prob``, every shipped config's) at that shape,
-   at the attention heads' (8, 64, 64, 64, 64) bf16 and at a ragged,
-   unaligned f32 length: kernel bitwise equal to plain, survivors equal to
-   ``x / keep_d`` rounded once (``keep_d``: 0.99 rounded to the dtype);
+   channels-last. Then bitwise equal at every distinct dropout shape of the
+   flagship step (``pallas`` and ``xla``, the module tree's five shapes from
+   ``tools/dropout_bench.py``) and at the attention step's six, its heads'
+   (8, 64, 64, 64, 64) among them (``xla``), ``xla`` survivors equal to
+   ``x / keep_d`` rounded once
+   (``keep_d``: 0.99 rounded to the dtype), and at a ragged, unaligned
+   float32 and bf16 length (the scalar path); the division sweep: all 2^32
+   float32 bit patterns through the ``xla`` kernel in 2^30-element launches
+   at threshold 2^32 - 1 and the keep of rates 0.01, 0.1, 0.3, 0.5 and 0.9,
+   bit for bit the plain division (NaNs as NaN) but where an element's word
+   drops it (phase 17 times every shape);
 6. dW kernel vs its plain version at the ten distinct stride-1 weight
    gradients of the flagship step, batch 96 bf16 (16->16 and 32->16 at
    64^3, 32->32 and 64->32 at 32^3, 64->64 and 128->64 at 16^3, 128->128
@@ -133,12 +144,21 @@ non-zero before the result line:
    network's largest dropout, (32, 16, 256, 256) bf16 channels-last,
    ``xla``: bitwise equal, survivors ``x / keep_d``, backward mask = forward
    mask for a gradient that is not channels-last, a channels-last output;
-   kernel, plain and ``F.dropout`` times beside the byte bound; the blend at
-   the stacked evaluation geometry (10 contributions of (1, 256, 256, 3)
-   into (64, 384, 384, 3) at the first 10 ``(z, i, j)`` rows): bitwise
-   equal, on the path the geometry implies, device time from a trace beside
-   the byte bound.
+   bitwise at the other four 2D shapes; the plain version's time;
+17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
+   process of its own: the dropout kernel at every dropout shape of the
+   flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
+   steps, bf16 channels-last: device ms a launch (the median of a warm
+   profiler trace), CUDA-event ms around 50 or more launches over inputs
+   that fill twice the L2 cache, around one wrapper call (host time
+   included, as earlier readings were taken), the wrapper's host us a call,
+   ``F.dropout``'s device and event ms, the byte bound, and the sums per
+   step. A process of its own, because after many traces in one process a
+   later trace can hold no device events.
 
+Phase 11 runs right after phase 2, so that every ``torch.profiler`` trace
+of this process comes before its first CLI run (phase 4): on the H100
+machine a trace taken after a CLI run now and then held no device events.
 Phases 15 and 16 run before phase 14. No entry point reaches the kernels
 of phases 9-11 (as in the JAX package);
 their launches in the ``kernels`` line are the counts of their own phase.
@@ -269,12 +289,14 @@ def phase_device_and_build():
         say(f"[1] dw_conv SASS {fn}: {', '.join(sorted(ops)) or 'none'}")
     check(mma and all(mma.values()),
           "the bf16 dW kernels hold no HMMA or HGMMA instruction")
+    dropout_sass(built[KERNELS.index("dropout")].path)
     return name, smi
 
 
-def tensor_core_ops(library) -> dict:
-    """``{kernel: {"HMMA", "HGMMA"} it holds}`` from ``cuobjdump
-    --dump-sass`` of a built library (HMMA is mma.sync, HGMMA wgmma)."""
+def sass_instructions(library) -> dict:
+    """``{kernel: [(opcode, operands)]}`` from ``cuobjdump --dump-sass`` of
+    a built library (an opcode with its modifiers, e.g. ``IMAD.WIDE.U32``;
+    predicates dropped)."""
     from vnet_tpu_torch.ops import build
 
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
@@ -285,15 +307,65 @@ def tensor_core_ops(library) -> dict:
         text = line.strip()
         if text.startswith("Function :"):
             name = text.split(":", 1)[1].strip()
-            found[name] = set()
-        elif name is not None:
-            found[name].update(op for op in ("HMMA", "HGMMA")
-                               if f"{op}." in text or f"{op} " in text)
+            found[name] = []
+        elif name is not None and text.startswith("/*") and "*/" in text:
+            words = text.split("*/", 1)[1].split("/*")[0].split(None, 1)
+            if words and words[0].startswith("@"):
+                words = words[1].split(None, 1) if len(words) > 1 else []
+            if words and words[0][0].isupper():
+                found[name].append((words[0].rstrip(";"),
+                                    words[1] if len(words) > 1 else ""))
     return found
 
 
-def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width,
-                     tag="[2]"):
+def tensor_core_ops(library) -> dict:
+    """``{kernel: {"HMMA", "HGMMA"} it holds}`` (HMMA is mma.sync, HGMMA
+    wgmma)."""
+    return {name: {op for op in ("HMMA", "HGMMA")
+                   if any(o.split(".")[0] == op for o, _ in code)}
+            for name, code in sass_instructions(library).items()}
+
+
+# Philox4x32's round keys past the first: k + r * Weyl constant, r = 1..9
+PHILOX_KEY_STEPS = {(r * w) % 2 ** 32 for r in range(1, 10)
+                    for w in (0x9E3779B9, 0xBB67AE85)}
+
+
+def dropout_sass(library) -> None:
+    """The dropout kernels' SASS: no local memory (no spills), the
+    32x32->64-bit multiplies (19 a Philox call: the first round's second
+    product is 0), 16-byte loads and stores, and Philox's key schedule made
+    once per loop, not once per call: each of the 18 round-key steps is
+    added at most once for each of the kernel's two loops (vector and
+    scalar), so the keys stay in registers across the calls."""
+    steps = {f"{m:#x}" for m in PHILOX_KEY_STEPS} | {
+        f"-{2 ** 32 - m:#x}" for m in PHILOX_KEY_STEPS}
+    for name, code in sorted(sass_instructions(library).items()):
+        if "dropout_kernel" not in name:
+            continue
+
+        def count(prefix, test=lambda op, args: True):
+            return sum(op.split(".")[0] == prefix and test(op, args)
+                       for op, args in code)
+
+        local = count("STL") + count("LDL")
+        wide = count("IMAD", lambda op, args: op == "IMAD.WIDE.U32")
+        loads = count("LDG", lambda op, args: ".128" in op)
+        stores = count("STG", lambda op, args: ".128" in op)
+        key_adds = sum(any(t.strip(" ;") in steps for t in args.split(","))
+                       for _, args in code)
+        say(f"[1] dropout SASS {name}: IMAD.WIDE.U32 {wide}, round-key "
+            f"adds {key_adds} (18 make the schedule once), local loads and "
+            f"stores {local}, 16-byte loads {loads}, 16-byte stores "
+            f"{stores}")
+        check(local == 0, f"{name} uses local memory")
+        check(wide >= 19 and stores >= 1,
+              f"{name}: no Philox multiplies or no 16-byte stores")
+        check(18 <= key_adds <= 36, f"{name}: the key schedule is made "
+                                    f"{key_adds / 18:g} times")
+
+
+def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width):
     """Blend kernel vs the plain slice-adds: bitwise equal, on the float
     path of ``width`` floats per element; times and the byte bound (each
     covered accumulator element read and written once, each contribution
@@ -334,10 +406,10 @@ def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width,
                            if "blend_accumulate_kernel" in name)
     nbytes = (2 * covered * acc_shape[-1] * 4 + contrib.nbytes)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say(f"{tag} {label}: acc {tuple(acc_shape)} contrib "
+    say(f"[2] {label}: acc {tuple(acc_shape)} contrib "
         f"{tuple(contrib.shape)} starts {starts.tolist()}; {covered} covered "
         f"elements, up to {depth} patches over one")
-    say(f"{tag} {label}: {'float4' if got_width == 4 else 'float'} path "
+    say(f"[2] {label}: {'float4' if got_width == 4 else 'float'} path "
         f"(width {got_width}, expected {width}); bitwise_equal={equal} "
         f"max_abs_err={err:.3e}; kernel {ms:.4f} ms of device time "
         f"(profiler, median of {calls}, one launch a call in the trace, "
@@ -370,9 +442,26 @@ def phase_kernel_vs_plain(card):
     ragged = build_patch_grid(ragged_vol, ragged_patch, (23, 19, 11))
     err_r = _kernel_vs_plain(ragged_vol + (3,), ragged_patch, ragged[-7:],
                              gen, "ragged geometry", 1)[0]
-    return dict(max_abs_err=max(err, err_d, err_r), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
-                share_of_bound=bound_ms / ms, call_ms=call_ms)
+    # the 2D evaluation's: (z, i, j) rows of depth-1 blocks
+    grid = build_patch_grid(SLICE_VOLUME[:2], PATCH_2D, EVAL_STRIDE_2D)
+    rows = np.concatenate(
+        [np.repeat(np.arange(SLICE_VOLUME[2], dtype=np.int32),
+                   len(grid))[:, None],
+         np.tile(grid, (SLICE_VOLUME[2], 1))], axis=-1)[:SLICE_BATCH]
+    stack = (SLICE_VOLUME[2],) + SLICE_VOLUME[:2]
+    c = 3  # blend weight and config_2d.json's two classes
+    width = _blend_width(stack[2], PATCH_2D[1], rows[:, 2].tolist(), c)
+    err_2d, ms_2d, plain_2d, bound_2d, call_2d = _kernel_vs_plain(
+        stack + (c,), (1,) + PATCH_2D, rows, gen, "slice-stacked 2D geometry",
+        width)
+    blend = dict(max_abs_err=max(err, err_d, err_r), ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                 library_ms=None, share_of_bound=bound_ms / ms,
+                 call_ms=call_ms)
+    blend_2d = dict(max_abs_err=err_2d, ms=ms_2d, plain_ms=plain_2d,
+                    bound_ms=bound_2d, bound_by="bytes", library_ms=None,
+                    call_ms=call_2d)
+    return blend, blend_2d
 
 
 def phase_forward_card_vs_cpu():
@@ -537,12 +626,135 @@ def read_counts() -> dict:
     return {name: w.launches for name, w in _counted().items()}
 
 
-def phase_dropout():
-    """Dropout kernel vs plain at the main path's largest dropout."""
-    import torch.nn.functional as F
+def phase_dropout_times():
+    """``tools/dropout_bench.py`` in a process of its own (a fresh
+    profiler: after many traces in one process, later traces can hold no
+    device events): every dropout shape of the three training steps, timed
+    as the module says; ``(rows, sums)``."""
+    out = os.path.join(tempfile.mkdtemp(prefix="vnet_smoke_drop_"),
+                       "dropout_bench.json")
+    cmd = [sys.executable, "-m", "vnet_tpu_torch.tools.dropout_bench",
+           "--out", out]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    if proc.returncode != 0:
+        for line in (proc.stdout + proc.stderr).strip().splitlines()[-15:]:
+            say(f"[17]   {line}")
+    check(proc.returncode == 0, "dropout_bench failed")
+    with open(out) as f:
+        bench = json.load(f)
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    for row in bench["rows"]:
+        lib = row["F.dropout"]
+        say(f"[17] dropout {row['impl']} {tuple(row['shape'])} bf16 "
+            f"channels-last: device {row['device_ms']:.4f} ms a launch "
+            f"(profiler median; {row['bound_ms'] / row['device_ms']:.1%} of "
+            f"the {row['bound_ms']:.4f} ms byte bound), events "
+            f"{row['event_ms']:.4f} ms a launch over {bench['launches']}+ "
+            f"launches, {row['call_ms']:.4f} ms per wrapper call (events "
+            f"around one call, host time included), wrapper "
+            f"{row['host_us']:.1f} us of host time a call;"
+            f" F.dropout device {lib['device_ms']:.4f} ms, events "
+            f"{lib['event_ms']:.4f} ms")
+    for name, e in bench["sums"].items():
+        say(f"[17] dropout in a {name} step: {e['launches']} launches, "
+            f"device {e['device_ms']:.4f} ms against a bound of "
+            f"{e['bound_ms']:.4f} ms, F.dropout {e['library_device_ms']:.4f}"
+            f" ms")
+    say(f"[17] dropout_bench in {time.perf_counter() - t0:.1f} s "
+        f"({bench['card']})")
+    rows = [dict(shape=r["shape"], impl=r["impl"], device_ms=r["device_ms"],
+                 event_ms=r["event_ms"], call_ms=r["call_ms"],
+                 host_us=r["host_us"],
+                 bound_ms=r["bound_ms"],
+                 library_device_ms=r["F.dropout"]["device_ms"],
+                 library_event_ms=r["F.dropout"]["event_ms"])
+            for r in bench["rows"]]
+    return rows, bench["sums"]
 
+
+def _dropout_equal(shape, impls, gen, seed, stream, tag, dtype=None):
+    """Kernel vs plain, bitwise, at one channels-last shape (``xla``
+    survivors also ``x / keep_d`` rounded once); ``max |diff|``."""
+    from vnet_tpu_torch.ops.dropout import (dropout_apply, dropout_params,
+                                            dropout_plain)
+
+    fmt = (torch.channels_last_3d if len(shape) == 5
+           else torch.channels_last)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 30.0).to(
+        dtype or torch.bfloat16).contiguous(memory_format=fmt)
+    err = 0.0
+    for impl in impls:
+        params = dropout_params(0.01, impl)
+        out_k = dropout_apply(x, seed, stream, *params)
+        out_p = dropout_plain(x, seed, stream, *params)
+        torch.cuda.synchronize()
+        equal = torch.equal(out_k, out_p)
+        err = max(err, (out_k.float() - out_p.float()).abs().max().item())
+        quotient = True
+        if impl == "xla":
+            keep_d = torch.tensor(params[1], dtype=x.dtype).float().cuda()
+            kept = out_k != 0
+            quotient = torch.equal(out_k[kept],
+                                   (x.float() / keep_d).to(x.dtype)[kept])
+        say(f"{tag} dropout {impl} {shape}: kernel bitwise_equal={equal}"
+            + (f", survivors x / keep_d rounded once={quotient}"
+               if impl == "xla" else ""))
+        check(equal, f"dropout {impl} {shape}: kernel differs from plain")
+        check(quotient, f"dropout xla {shape}: survivors != x / keep_d")
+        del out_k, out_p
+    del x
+    torch.cuda.empty_cache()
+    return err
+
+
+def _division_sweep():
+    """Every float32 bit pattern through the ``xla`` kernel, in 2^30-element
+    calls, at threshold 2^32 - 1 and ``keep_d`` of each rate: each output's
+    bits equal the plain division's (NaNs as NaN), except where the
+    element's word is 2^32 - 1 and the output is +0 (dropped)."""
+    from vnet_tpu_torch.ops.dropout import (dropout_apply, dropout_params,
+                                            philox4x32_10)
+
+    thr, chunk, seed, stream = 2 ** 32 - 1, 1 << 30, 20261018, 5
+    t0 = time.perf_counter()
+    result = {}
+    for rate in (0.01, 0.1, 0.3, 0.5, 0.9):
+        _, keep, divide = dropout_params(rate, "xla")
+        keep_d = torch.tensor(keep, dtype=torch.float32, device="cuda")
+        wrong = dropped = 0
+        for c in range(4):
+            x = torch.arange(chunk, dtype=torch.int32, device="cuda").add_(
+                -2 ** 31 + c * chunk).view(torch.float32)
+            out = dropout_apply(x, seed, stream, thr, keep, divide)
+            expect = x / keep_d
+            bad = ((out.view(torch.int32) != expect.view(torch.int32))
+                   & ~(out.isnan() & expect.isnan())).nonzero().flatten()
+            if bad.numel():
+                words = philox4x32_10(bad // 4, seed, stream)
+                word = words.gather(1, (bad % 4)[:, None]).flatten()
+                drop = (word == thr) & (out[bad].view(torch.int32) == 0)
+                dropped += int(drop.sum())
+                wrong += int((~drop).sum())
+            del x, out, expect, bad
+        result[rate] = (wrong, dropped)
+    torch.cuda.empty_cache()
+    say(f"[5] division sweep, all 2^32 float32 patterns at threshold 2^32 - 1 "
+        f"in 2^30-element launches: (mismatches, dropped) by rate "
+        f"{result} in {time.perf_counter() - t0:.1f} s")
+    check(all(w == 0 for w, _ in result.values()),
+          f"the kernel's division differs from the plain one: {result}")
+    return result
+
+
+def phase_dropout():
+    """Dropout kernel vs plain at every dropout shape of the flagship and
+    attention steps, and the division sweep (phase 17 times them)."""
     from vnet_tpu_torch.ops.dropout import (dropout, dropout_apply,
                                             dropout_params, dropout_plain)
+    from vnet_tpu_torch.tools.dropout_bench import dropout_shapes
 
     rate, seed, stream = 0.01, 20261016, 3
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -551,8 +763,6 @@ def phase_dropout():
                         memory_format=torch.channels_last_3d)
     nonzero = x != 0
     n = int(nonzero.sum())
-    bound_ms = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3  # read x, write out
-    result = {}
     for impl in ("pallas", "bits8"):
         params = dropout_params(rate, impl)
         thr = params[0]
@@ -560,7 +770,6 @@ def phase_dropout():
         out_p = dropout_plain(x, seed, stream, *params)
         torch.cuda.synchronize()
         equal = torch.equal(out_k, out_p)
-        err = (out_k.float() - out_p.float()).abs().max().item()
         p = thr / 2.0 ** 32
         kept = int(((out_k != 0) & nonzero).sum())
         sigmas = abs(kept - n * p) / (n * p * (1 - p)) ** 0.5
@@ -570,83 +779,56 @@ def phase_dropout():
         g = torch.ones(y.shape, dtype=y.dtype, device="cuda")  # not CL
         (dx,) = torch.autograd.grad(y, xr, g)
         same_mask = bool((((dx != 0) == (y != 0)) | ~nonzero).all())
-        del xr, y, g, dx
-        ms = time_ms(lambda: dropout_apply(x, seed, stream, *params))
-        plain_ms = time_ms(lambda: dropout_plain(x, seed, stream, *params),
-                           reps=3)
-        lib_ms = time_ms(lambda: F.dropout(x, rate, training=True))
+        del xr, y, g, dx, out_k
         say(f"[5] dropout {impl} {tuple(x.shape)} bf16 channels-last: "
             f"bitwise_equal={equal} keep {kept / n:.6f} (p {p:.6f}, "
-            f"{sigmas:.2f} sigma) backward_mask_equal={same_mask}; kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms F.dropout {lib_ms:.4f} ms "
-            f"byte bound {bound_ms:.4f} ms")
+            f"{sigmas:.2f} sigma) backward_mask_equal={same_mask}")
         check(equal, f"dropout {impl}: kernel differs from the plain version")
         check(sigmas < 5.0, f"dropout {impl}: keep fraction off by "
                             f"{sigmas:.1f} sigma")
         check(same_mask, f"dropout {impl}: backward mask != forward mask")
-        result[impl] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by="bytes",
-                            library_ms=lib_ms)
+    params = dropout_params(rate, "xla")
+    plain_ms = time_ms(lambda: dropout_plain(x, seed, stream, *params),
+                       reps=3)
     del x, nonzero
     torch.cuda.empty_cache()
-    return _dropout_xla(rate, seed, stream, gen)
+    flagship = [s for s, _ in dropout_shapes("flagship")]
+    heads = [s for s, _ in dropout_shapes("attention") if s[0] == ATT_BATCH
+             and s[1] == ATT_CHANNELS and s[2:] == TRAIN_PATCH]
+    check(len(flagship) == 5 and len(heads) == 1,
+          f"dropout shapes: {flagship}, heads {heads}")
+    err = max(_dropout_equal(s, ("pallas", "xla"), gen, seed, stream, "[5]")
+              for s in flagship)
+    for shape in [s for s, _ in dropout_shapes("attention")]:
+        _dropout_equal(shape, ("xla",), gen, seed, stream, "[5]")
+    _dropout_ragged(gen, seed, stream)
+    _division_sweep()
+    return dict(max_abs_err=err, plain_ms=plain_ms)
 
 
-def _dropout_xla(rate, seed, stream, gen):
-    """The ``xla`` flavour: survivors ``x / keep_d`` rounded once, at the
-    backbone's and the attention heads' largest dropouts and at a ragged,
-    unaligned float32 length (the kernel's scalar path)."""
-    import torch.nn.functional as F
-
+def _dropout_ragged(gen, seed, stream):
+    """A ragged, unaligned float32 length (the kernel's scalar path) and a
+    bf16 one: ``xla`` kernel bitwise equal to plain, survivors
+    ``x / keep_d`` rounded once."""
     from vnet_tpu_torch.ops.dropout import (dropout_apply, dropout_params,
                                             dropout_plain)
 
-    params = dropout_params(rate, "xla")
-    thr, keep, divide = params
-    check(divide, "xla dropout does not divide")
-    cl = torch.channels_last_3d
-    cases = [((FLAGSHIP_BATCH, 16) + TRAIN_PATCH, torch.bfloat16),
-             ((ATT_BATCH, ATT_CHANNELS) + TRAIN_PATCH, torch.bfloat16),
-             ((1000003,), torch.float32)]
-    result = None
-    for shape, dtype in cases:
-        if len(shape) == 5:
-            x = (torch.randn(shape, generator=gen, device="cuda") * 30.0).to(
-                dtype).contiguous(memory_format=cl)
-        else:  # one element off 16-byte alignment
-            x = (torch.randn(shape[0] + 1, generator=gen, device="cuda")
-                 * 30.0)[1:]
+    params = dropout_params(0.01, "xla")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(1000004, generator=gen, device="cuda")
+             * 30.0).to(dtype)[1:]  # one element off 16-byte alignment
         out_k = dropout_apply(x, seed, stream, *params)
         out_p = dropout_plain(x, seed, stream, *params)
-        torch.cuda.synchronize()
-        equal = torch.equal(out_k, out_p)
-        err = (out_k.float() - out_p.float()).abs().max().item()
-        del out_p
-        keep_d = torch.tensor(keep, dtype=dtype).float().cuda()
+        keep_d = torch.tensor(params[1], dtype=dtype).float().cuda()
         kept = out_k != 0
-        expect = (x.float() / keep_d).to(dtype)
-        quotient = torch.equal(out_k[kept], expect[kept])
-        share = kept.float().mean().item()
-        del expect, kept, out_k
-        ms = time_ms(lambda: dropout_apply(x, seed, stream, *params))
-        plain_ms = time_ms(lambda: dropout_plain(x, seed, stream, *params),
-                           reps=3)
-        lib_ms = time_ms(lambda: F.dropout(x, rate, training=True))
-        bound_ms = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3
-        say(f"[5] dropout xla {shape} {dtype}: bitwise_equal={equal} "
-            f"survivors x / keep_d ({float(keep_d):.8f}) rounded once="
-            f"{quotient}, kept {share:.6f}; kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms F.dropout {lib_ms:.4f} ms byte bound "
-            f"{bound_ms:.4f} ms")
-        check(equal, f"dropout xla {shape}: kernel differs from plain")
-        check(quotient, f"dropout xla {shape}: survivors != x / keep_d")
-        if result is None:
-            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by="bytes",
-                          library_ms=lib_ms)
-        del x
-        torch.cuda.empty_cache()
-    return result
+        equal = torch.equal(out_k, out_p)
+        quotient = torch.equal(out_k[kept], (x.float() / keep_d).to(dtype)[
+            kept])
+        say(f"[5] dropout xla ragged unaligned ({x.numel()},) {dtype}: "
+            f"bitwise_equal={equal} survivors x / keep_d rounded once="
+            f"{quotient}, kept {kept.float().mean().item():.6f}")
+        check(equal, f"dropout xla ragged {dtype}: kernel differs from plain")
+        check(quotient, f"dropout xla ragged {dtype}: survivors != x/keep_d")
 
 
 DW_SHAPES = (  # (Ci, Co, side, k, launches per step) at batch 96: the ten
@@ -1170,16 +1352,18 @@ def _device_spans(fn, kernel: str, per_call: int, calls: int, label: str):
     """``([(name, ms)], tries)``: the device events of ``calls`` calls of
     ``fn`` from a ``torch.profiler`` trace, which must hold ``per_call``
     events of ``kernel`` (a name fragment) a call, as the launch count says.
-    A trace that starts cold can miss device events, so one untimed trace
-    of one call comes first, and a trace whose count differs is taken
-    again, three tries in all: a kernel that runs another number of times
+    A trace can miss device events (a cold one often; on the H100 machine,
+    later ones now and then hold none at all), so each try starts with an
+    untimed trace of one call, and a trace whose count differs is taken
+    again, six tries in all: a kernel that runs another number of times
     fails every one."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts):
-        fn()
+    for tries in range(1, 7):
         torch.cuda.synchronize()
-    for tries in range(1, 4):
+        with torch.profiler.profile(activities=acts):
+            fn()
+            torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(calls):
                 fn()
@@ -1793,11 +1977,11 @@ def _step_2d():
 
 
 def _dropout_2d(gen):
-    """The dropout kernel at the 2D network's largest dropout."""
-    import torch.nn.functional as F
-
+    """The dropout kernel at the 2D network's dropout shapes: the largest
+    held in full, the others bitwise (phase 17 times all five)."""
     from vnet_tpu_torch.ops.dropout import (dropout, dropout_apply,
                                             dropout_params, dropout_plain)
+    from vnet_tpu_torch.tools.dropout_bench import dropout_shapes
 
     rate, seed, stream = 0.01, 20261017, 3
     params = dropout_params(rate, "xla")
@@ -1825,51 +2009,35 @@ def _dropout_2d(gen):
     same_mask = (bool((((dx != 0) == (y != 0)) | (x == 0)).all())
                  and torch.equal(y, out_k))
     del xr, y, g, dx, out_k
-    ms = time_ms(lambda: dropout_apply(x, seed, stream, *params))
     plain_ms = time_ms(lambda: dropout_plain(x, seed, stream, *params),
                        reps=3)
-    lib_ms = time_ms(lambda: F.dropout(x, rate, training=True))
-    bound_ms = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3
     say(f"[16] dropout xla {tuple(x.shape)} bf16 channels-last: "
         f"bitwise_equal={equal} survivors x / keep_d rounded once="
         f"{quotient}, kept {share:.6f}, output channels-last={layout}, "
-        f"backward_mask_equal={same_mask} ({zeros} zeros in x); kernel "
-        f"{ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms F.dropout {lib_ms:.4f} ms byte bound "
-        f"{bound_ms:.4f} ms ({2 * x.nbytes / 1e6:.1f} MB), "
-        f"{bound_ms / ms:.1%} of it")
+        f"backward_mask_equal={same_mask} ({zeros} zeros in x); plain "
+        f"{plain_ms:.4f} ms")
     check(equal, "2D dropout: kernel differs from the plain version")
     check(quotient, "2D dropout: survivors != x / keep_d")
     check(layout, "2D dropout: output not channels-last")
     check(same_mask, "2D dropout: backward mask != forward mask")
     del x
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=lib_ms)
+    shapes = [s for s, _ in dropout_shapes("2d")]
+    check(len(shapes) == 5 and shapes[0] == (BATCH_2D, 16) + PATCH_2D,
+          f"2D dropout shapes {shapes}")
+    for shape in shapes[1:]:
+        err = max(err, _dropout_equal(shape, ("xla",), gen, seed, stream,
+                                      "[16]"))
+    return dict(max_abs_err=err, plain_ms=plain_ms)
 
 
 def phase_2d_shapes():
-    """The 2D step, then the dropout and blend kernels at 2D shapes."""
-    from vnet_tpu_torch.infer.sliding_window import build_patch_grid
-
+    """The 2D step, then the dropout kernel at the 2D shapes (phase 2 holds
+    the blend at the 2D evaluation's geometry)."""
     step_ms, peak = _step_2d()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     drop = _dropout_2d(gen)
-    grid = build_patch_grid(SLICE_VOLUME[:2], PATCH_2D, EVAL_STRIDE_2D)
-    rows = np.concatenate(
-        [np.repeat(np.arange(SLICE_VOLUME[2], dtype=np.int32),
-                   len(grid))[:, None],
-         np.tile(grid, (SLICE_VOLUME[2], 1))], axis=-1)[:SLICE_BATCH]
-    stack = (SLICE_VOLUME[2],) + SLICE_VOLUME[:2]
-    c = 3  # blend weight and config_2d.json's two classes
-    width = _blend_width(stack[2], PATCH_2D[1], rows[:, 2].tolist(), c)
-    err, ms, plain_ms, bound_ms, call_ms = _kernel_vs_plain(
-        stack + (c,), (1,) + PATCH_2D, rows, gen, "slice-stacked 2D geometry",
-        width, tag="[16]")
-    blend = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by="bytes", library_ms=None,
-                 call_ms=call_ms)
-    return step_ms, peak, drop, blend
+    return step_ms, peak, drop
 
 
 def run():
@@ -1880,7 +2048,11 @@ def run():
 
     card, smi = phase_device_and_build()
     phase_cuda_tests()
-    blend = phase_kernel_vs_plain(card)
+    # every torch.profiler trace of this process before the first CLI run:
+    # on the H100 machine, a trace taken after one now and then held no
+    # device events in six tries
+    blend, blend_2d = phase_kernel_vs_plain(card)
+    rows, n_rows = phase_rows()
     phase_forward_card_vs_cpu()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_")
     try:
@@ -1897,21 +2069,31 @@ def run():
     phase_flagship()
     (stats, grad_stats), (n_stats, n_grad) = phase_bn()
     tail, n_tail = phase_tail()
-    rows, n_rows = phase_rows()
     att_drops, _, _ = phase_attention_step()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_2d_")
     try:
         drops_2d, blends_2d, _, _ = phase_2d_cli(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # before phase 14: a torch.profiler trace taken after phase 14's trace
-    # capture held no device events on the card
-    _, _, drop_2d, blend_2d = phase_2d_shapes()
+    _, _, drop_2d = phase_2d_shapes()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_att_cli_")
     try:
         phase_attention_cli(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    drop_rows, drop_sums = phase_dropout_times()
+
+    def timed(shape, impl):
+        r = next(r for r in drop_rows if tuple(r["shape"]) == shape
+                 and r["impl"] == impl)
+        return dict(ms=r["device_ms"], bound_ms=r["bound_ms"],
+                    bound_by="bytes", library_ms=r["library_device_ms"],
+                    event_ms=r["event_ms"], call_ms=r["call_ms"],
+                    host_us=r["host_us"])
+
+    drop.update(timed((FLAGSHIP_BATCH, 16) + TRAIN_PATCH, "xla"),
+                per_shape=drop_rows, per_step=drop_sums)
+    drop_2d.update(timed((BATCH_2D, 16) + PATCH_2D, "xla"))
     own = "its own phase ({}); no entry point reaches it"
     say(json.dumps({"kernels": [
         dict(name="blend_accumulate_patches", route="cuda",
@@ -1929,7 +2111,14 @@ def run():
              launches_in="phase 7 (training, pallas flavour), phase 13 "
                          "(attention step, xla flavour) and phase 15 (2D "
                          "training, xla flavour)",
-             times_are="xla flavour at (96, 16, 64, 64, 64) bf16",
+             times_are="xla flavour at (96, 16, 64, 64, 64) bf16: device "
+                       "ms a launch, the median of a profiler trace "
+                       "(event_ms: CUDA events around 50 launches; call_ms: "
+                       "around one wrapper call, host time included; "
+                       "host_us: the wrapper's host time a call); "
+                       "per_shape: every "
+                       "dropout shape of the flagship, attention and 2D "
+                       "steps; per_step: launches x device ms summed",
              at_2d=dict(shape="(32, 16, 256, 256) bf16 channels-last, xla",
                         **drop_2d), **drop),
         dict(name="dw_conv_pallas", route="cuda",

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from vnet_tpu_torch.ops.dropout import (dropout_apply, dropout_params,
-                                        dropout_plain)
+                                        dropout_plain, keep_mask)
 
 
 @pytest.fixture
@@ -93,3 +93,27 @@ def test_2d_activation_kernel_equals_plain_on_card(impl, fmt, cuda_device):
     # an exact 0 in x (torch.randn draws one about once in 2^24) stays 0
     assert bool((((dx != 0) == (y != 0)) | (x == 0)).all())
     assert torch.equal(y, out_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_kernel_division_equals_ieee_division_for_every_pattern(
+        dtype, cuda_device):
+    """Every bf16 or f16 bit pattern through the ``xla`` kernel at each of
+    the CPU tests' rates, threshold 2^32 - 1 (every element but those whose
+    word is 2^32 - 1 kept): each kept element is ``dtype(f32(x) /
+    f32(keep_d))`` bit for bit, NaNs compared as NaN; the kernel divides
+    without ``__fdiv_rn`` (``csrc/dropout.cu``)."""
+    thr = 2 ** 32 - 1
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                     device=cuda_device).to(torch.int16).view(dtype)
+    kept = keep_mask(x.numel(), 11, 4, thr, cuda_device)
+    for rate in (0.01, 0.1, 0.3, 0.5, 0.9):
+        _, keep, divide = dropout_params(rate, "xla")
+        out = dropout_apply(x, 11, 4, thr, keep, divide)
+        keep_d = torch.tensor(keep, dtype=dtype).float().to(cuda_device)
+        expect = torch.where(kept, (x.float() / keep_d).to(dtype),
+                             torch.zeros((), dtype=dtype, device=cuda_device))
+        same = ((out.view(torch.int16) == expect.view(torch.int16))
+                | (out.isnan() & expect.isnan()))
+        assert bool(same.all()), (rate, int((~same).sum()))

@@ -10,6 +10,7 @@ plain version runs here; the CUDA kernel is held bitwise against it on the
 card (``tests/test_torch_cuda_dropout.py`` and ``chip_smoke.py``).
 """
 
+import fractions
 import math
 
 import numpy as np
@@ -229,3 +230,122 @@ def test_2d_activation_in_channels_last_counter_order(fmt, rng):
     assert not g.is_contiguous(memory_format=torch.channels_last)
     (dx,) = torch.autograd.grad(y, x, g)
     assert torch.equal(dx != 0, y != 0)
+
+
+# --- the kernel's division (csrc/dropout.cu, scale<true>) modelled exactly
+
+_LO, _HI = -100, 127  # the kernel's guard: |x| >= 2^-100 (or 0), |q| < 2^127
+
+
+def _rn32(m: int, e: int):
+    """``m * 2**e`` rounded to the nearest float32 (ties to even, with
+    subnormals) as ``(m', e')``, or ``None`` where it overflows."""
+    if m == 0:
+        return 0, 0
+    a = abs(m)
+    last = max(e + a.bit_length() - 24, -149)  # exponent of the last bit
+    if last > e:
+        s = last - e
+        a, rest = a >> s, a & ((1 << s) - 1)
+        if rest > 1 << (s - 1) or (rest == 1 << (s - 1) and a & 1):
+            a += 1
+        e = last
+    if e + a.bit_length() - 1 > 127:
+        return None
+    return (a if m > 0 else -a), e
+
+
+def _fma(a, b, c):
+    """float32 ``fma(a, b, c)`` on exact dyadics ``(m, e)``: one rounding."""
+    (ma, ea), (mb, eb), (mc, ec) = a, b, c
+    e = min(ea + eb, ec)
+    return _rn32((ma * mb << (ea + eb - e)) + (mc << (ec - e)), e)
+
+
+def _dyadic(v: float):
+    n, d = v.as_integer_ratio()
+    return n, 1 - d.bit_length()
+
+
+def _kernel_quotient(v: float, d, r):
+    """The kernel's ``x / d`` for a finite float32 ``x``: ``q0 = RN(x *
+    r)``, two corrections ``q' = fma(fma(-q, d, x), r, q)``, the sign of
+    ``x``; ``(q, e1)`` with ``e1`` the second remainder, or ``None`` where
+    the guard sends ``x`` to ``__fdiv_rn`` (``|x| < 2^-100`` and not 0, or
+    ``|q| >= 2^127``)."""
+    if v == 0.0:
+        return v, (0, 0)  # q0 = q1 = q = +-0; copysign keeps x's zero
+    x = _dyadic(v)
+    if abs(v) < 2.0 ** _LO:
+        return None
+    q = _rn32(x[0] * r[0], x[1] + r[1])
+    e = None
+    for _ in range(2):
+        if q is None:
+            return None
+        e = _fma((-q[0], q[1]), d, x)
+        q = None if e is None else _fma(e, r, q)
+    if q is None or abs(q[0]).bit_length() + q[1] - 1 >= _HI:
+        return None
+    return math.ldexp(q[0], q[1]), e
+
+
+@pytest.mark.parametrize("name", ["bf16", "f16"])
+def test_kernel_division_model_equals_ieee_division_exhaustively(name):
+    """Every bf16 or f16 bit pattern x, at each rate of ``RATES``: the
+    kernel's division without ``__fdiv_rn`` (the ``xla`` flavour, see
+    ``csrc/dropout.cu``), modelled in exact integer arithmetic, equals
+    ``dtype(f32(x) / f32(keep_d))`` (NaNs compared as NaN), and its last
+    remainder ``fma(-q1, keep_d, x)`` is exact, as Markstein's theorem
+    needs. The float32 quotients agree bit for bit before the rounding to
+    the dtype, which alone would hide most one-ulp errors. Guarded
+    patterns (non-finite, tiny, or a quotient near overflow) take the IEEE
+    division in the kernel and here."""
+    tdt = XLA_DTYPES[name][0]
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    x = bits.view(tdt).float()
+    values = x.tolist()
+    for rate in RATES:
+        _, keep, divide = dropout_params(rate, "xla")
+        assert divide
+        keep_d = float(torch.tensor(keep, dtype=tdt).float())
+        recip = float(torch.tensor(1.0 / keep_d, dtype=torch.float32))
+        quotient = x / torch.tensor(keep_d)  # float32, the IEEE division
+        d, r = _dyadic(keep_d), _dyadic(recip)
+        model, guarded = [], 0
+        for v, q in zip(values, quotient.tolist()):
+            got = _kernel_quotient(v, d, r) if math.isfinite(v) else None
+            if got is None:
+                guarded += 1
+                model.append(q)  # __fdiv_rn, the IEEE division
+                continue
+            qv, e1 = got
+            if qv != 0.0:
+                residual = (fractions.Fraction(v)
+                            - fractions.Fraction(qv) * fractions.Fraction(
+                                keep_d))
+                assert fractions.Fraction(math.ldexp(*e1)) == residual
+            model.append(qv)
+        got = torch.tensor(model, dtype=torch.float32)
+        for a, b, view in ((got, quotient, torch.int32),
+                           (got.to(tdt), quotient.to(tdt), torch.int16)):
+            same = (a.view(view) == b.view(view)) | (a.isnan() & b.isnan())
+            assert bool(same.all()), (rate, view, int((~same).sum()))
+        assert guarded < 0.2 * len(values)  # NaNs, infinities, tiny, huge
+
+
+def test_first_product_is_not_always_faithful():
+    """Why the kernel corrects twice: ``RN(x * RN(1 / d))`` can lie more
+    than one ulp from ``x / d``, outside the hypothesis of Markstein's
+    theorem for a single correction; after one correction the quotient is
+    faithful and the second is exact (float32, both operands in range)."""
+    d = float.fromhex("0x1.e76424p-1")
+    x = float.fromhex("0x1.0a2718p+0")
+    r = float(torch.tensor(1.0) / torch.tensor(d))
+    (mx, ex), (mr, er) = _dyadic(x), _dyadic(r)
+    q0 = _rn32(mx * mr, ex + er)
+    exact = fractions.Fraction(x) / fractions.Fraction(d)
+    ulp = fractions.Fraction(2) ** (math.floor(math.log2(exact)) - 23)
+    assert abs(fractions.Fraction(math.ldexp(*q0)) - exact) > ulp
+    q, _ = _kernel_quotient(x, _dyadic(d), _dyadic(r))
+    assert q == float(torch.tensor(x) / torch.tensor(d))

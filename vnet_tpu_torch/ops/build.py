@@ -70,15 +70,23 @@ def find_nvcc() -> str:
                            "kernels are built from source at first use")
 
 
-@functools.cache
 def load(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if its hashed library is missing, then
     load it. Cached per process."""
-    src = CSRC / f"{name}.cu"
+    return load_source(CSRC / f"{name}.cu")
+
+
+@functools.cache
+def load_source(src: Path) -> Built:
+    """:func:`load` for a source anywhere on disk (a benchmark's variant of
+    a kernel): the library is named by the file's stem and hash. The hash
+    covers that file alone, so such a variant is a whole copy of the
+    kernel, not a file that includes another."""
+    src = Path(src)
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = build_dir()
-    out = out_dir / f"lib{name}_{digest}.so"
+    out = out_dir / f"lib{src.stem}_{digest}.so"
     compiled, seconds, log = False, 0.0, ""
     if not out.exists():
         try:

@@ -134,6 +134,7 @@ def _unflat(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return flat.view(like.shape)
 
 
+@functools.cache
 def _in_dtype(factor: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(factor, dtype=dtype))
 
@@ -154,15 +155,20 @@ def dropout_plain(x: torch.Tensor, seed: int, stream: int, thr: int,
     return _unflat(flat, xs)
 
 
-@functools.cache
-def _kernel():
-    fn = build.load("dropout").lib.vnet_dropout
+def bind(lib: ctypes.CDLL):
+    """``lib.vnet_dropout`` with its C signature."""
+    fn = lib.vnet_dropout
     fn.argtypes = ([ctypes.c_void_p] * 2
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
                       ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _kernel():
+    return bind(build.load("dropout").lib)
 
 
 def dropout_apply(x: torch.Tensor, seed: int, stream: int, thr: int,
@@ -179,22 +185,34 @@ def dropout_apply(x: torch.Tensor, seed: int, stream: int, thr: int,
         return dropout_plain(x, seed, stream, thr, factor, divide)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    out = launch_with(_kernel(), x, seed, stream, thr, factor, divide)
+    dropout_apply.launches += 1
+    return out
+
+
+def launch_with(fn, x: torch.Tensor, seed: int, stream: int, thr: int,
+                factor: float, divide: bool) -> torch.Tensor:
+    """Launch ``fn``, a ctypes function with ``vnet_dropout``'s interface,
+    on a CUDA tensor ``x`` as :func:`dropout_apply` does, without counting
+    (``tools/dropout_bench.py`` times other builds of the kernel with it)."""
     xs = _storage_order(x)
     out = torch.empty_like(xs)
     if xs.numel() == 0:
         return out
-    align = 4 * xs.element_size()
-    vec = int(xs.data_ptr() % align == 0 and out.data_ptr() % align == 0)
-    f = _in_dtype(factor, x.dtype)
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        cuda_stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(xs.data_ptr(), out.data_ptr(), xs.numel(), _DTYPES[x.dtype],
-                 int(seed) & _MASK32, int(stream) & _MASK32, int(thr), f,
-                 int(bool(divide)), vec, cuda_stream)
+    x_ptr, out_ptr = xs.data_ptr(), out.data_ptr()
+    args = (x_ptr, out_ptr, xs.numel(), _DTYPES[x.dtype],
+            int(seed) & _MASK32, int(stream) & _MASK32, int(thr),
+            _in_dtype(factor, x.dtype), int(bool(divide)),
+            int((x_ptr | out_ptr) % 16 == 0))
+    index = x.device.index
+    # the raw stream handle, as Triton's launcher reads it: no Stream object
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"dropout launch failed: CUDA error {err}")
-    dropout_apply.launches += 1
     return out
 
 

@@ -59,7 +59,8 @@ GROUPS = (
 )
 
 
-def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0):
+def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
+                  patch=PATCH):
     """``(state, step_fn, images, labels)`` of the flagship workload."""
     net = build_network("VNet", num_classes=NUM_CLASSES, dropout_rate=0.01,
                         norm="batch", dtype=torch.bfloat16, device=device,
@@ -73,14 +74,15 @@ def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0):
         LossConfig(name="weighted_sorensen", weights=(0.01, 0.1, 1.0)),
         NUM_CLASSES, schedule, compute_metrics=False)
     host = np.random.default_rng(seed)
-    images = torch.from_numpy(host.normal(size=(batch,) + PATCH + (1,))
+    images = torch.from_numpy(host.normal(size=(batch,) + patch + (1,))
                               .astype(np.float32)).to(device)
     labels = torch.from_numpy(host.integers(
-        0, NUM_CLASSES, size=(batch,) + PATCH).astype(np.int32)).to(device)
+        0, NUM_CLASSES, size=(batch,) + patch).astype(np.int32)).to(device)
     return TrainState(net, opt), step, images, labels
 
 
-def attention_step(impl: str, batch: int, device="cuda", seed: int = 0):
+def attention_step(impl: str, batch: int, device="cuda", seed: int = 0,
+                   patch=PATCH):
     """``(state, step_fn, images, labels)`` of the attention-gated step;
     ``step_fn`` carries the step's distance maps."""
     net = build_network("AttentionVNet", num_classes=2, in_channels=2,
@@ -97,11 +99,11 @@ def attention_step(impl: str, batch: int, device="cuda", seed: int = 0):
                    attention_kind="l2", attention_scale=100.0),
         2, schedule, compute_metrics=False, is_attention=True)
     host = np.random.default_rng(seed)
-    images = torch.from_numpy(host.normal(size=(batch,) + PATCH + (2,))
+    images = torch.from_numpy(host.normal(size=(batch,) + patch + (2,))
                               .astype(np.float32)).to(device)
-    labels = torch.from_numpy((host.random((batch,) + PATCH) > 0.7)
+    labels = torch.from_numpy((host.random((batch,) + patch) > 0.7)
                               .astype(np.int32)).to(device)
-    dmaps = torch.from_numpy(host.random((batch,) + PATCH).astype(
+    dmaps = torch.from_numpy(host.random((batch,) + patch).astype(
         np.float32)).to(device)
 
     def step(state, images, labels, dropout_seed):
@@ -110,7 +112,8 @@ def attention_step(impl: str, batch: int, device="cuda", seed: int = 0):
     return TrainState(net, opt), step, images, labels
 
 
-def config2d_step(impl: str, batch: int, device="cuda", seed: int = 0):
+def config2d_step(impl: str, batch: int, device="cuda", seed: int = 0,
+                  patch=PATCH_2D):
     """``(state, step_fn, images, labels)`` of ``configs/config_2d.json``'s
     step: the 2D V-Net at full width (16 channels, 4 levels, convolutions
     (1, 2, 3, 3), bottom 3, PReLU, batch norm, dropout 0.01), bf16, 256^2
@@ -126,9 +129,9 @@ def config2d_step(impl: str, batch: int, device="cuda", seed: int = 0):
     step = make_train_step(LossConfig(name="sorensen", weights=()), 2,
                            schedule, compute_metrics=False)
     host = np.random.default_rng(seed)
-    images = torch.from_numpy(host.normal(size=(batch,) + PATCH_2D + (1,))
+    images = torch.from_numpy(host.normal(size=(batch,) + patch + (1,))
                               .astype(np.float32)).to(device)
-    labels = torch.from_numpy((host.random((batch,) + PATCH_2D) > 0.7)
+    labels = torch.from_numpy((host.random((batch,) + patch) > 0.7)
                               .astype(np.int32)).to(device)
     return TrainState(net, opt), step, images, labels
 
