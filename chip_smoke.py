@@ -26,25 +26,29 @@ non-zero before the result line:
    the kernel's device time from a ``torch.profiler`` trace, the wrapper
    call and the plain version with CUDA events (median of 25), beside the
    byte bound of the covered elements;
-3. the full-width VNet forward of one (1, 256, 256, 32, 1) patch in f32 with
-   TF32 off, on the card vs the same module on the CPU;
+3. the full-width VNet forward (packed, as ``build_network`` builds it) of
+   one (1, 256, 256, 32, 1) patch in f32 with TF32 off, on the card vs the
+   same module on the CPU;
 4. the main path: two synthetic 384x384x64 cases evaluated through
    ``python -m vnet_tpu_torch``'s ``main`` on ``cuda`` at the slice config
-   (``configs/config_eval_gaussian.json``: 16 channels, 4 levels, bf16,
+   (``configs/config_eval_gaussian.json``: the packed network, 16
+   channels, 4 levels, bf16,
    patch 256x256x32, stride 128x128x16, batch 10, cosine blend, LCC, volume
    threshold 50) with random weights from a seeded generator; the blend
    kernel's launches must equal the number of patch batches and take its
    float4 path, outputs must exist, labels lie in {0, 1, 2}, probability
    maps are finite and agree with the plain slice-add blend (``BlendImpl:
    xla``) on the card;
-5. dropout kernel vs its plain version at (96, 16, 64, 64, 64) bf16
-   channels-last, the main path's largest dropout, for ``pallas`` and
+5. dropout kernel vs its plain version at (96, 128, 32, 32, 32) bf16
+   channels-last, the packed main path's largest dropout (64^3 x 16
+   channels packed (2, 2, 2)), for ``pallas`` and
    ``bits8`` at the config's rate 0.01: bitwise equal, keep fraction within
    5 sigma, backward mask = forward mask for a gradient that is not
    channels-last. Then bitwise equal at every distinct dropout shape of the
-   flagship step (``pallas`` and ``xla``, the module tree's five shapes from
-   ``tools/dropout_bench.py``) and at the attention step's six, its heads'
-   (8, 64, 64, 64, 64) among them (``xla``), ``xla`` survivors equal to
+   packed flagship step (``pallas`` and ``xla``, the module tree's five
+   shapes from ``tools/dropout_bench.py``, 128 and 256 channels) and at the
+   attention step's six, its heads' (8, 64, 64, 64, 64) among them
+   (``xla``), ``xla`` survivors equal to
    ``x / keep_d`` rounded once
    (``keep_d``: 0.99 rounded to the dtype), and at a ragged, unaligned
    float32 and bf16 length (the scalar path); the division sweep: all 2^32
@@ -52,14 +56,17 @@ non-zero before the result line:
    at threshold 2^32 - 1 and the keep of rates 0.01, 0.1, 0.3, 0.5 and 0.9,
    bit for bit the plain division (NaNs as NaN) but where an element's word
    drops it (phase 17 times every shape);
-6. dW kernel vs its plain version at the ten distinct stride-1 weight
-   gradients of the flagship step, batch 96 bf16 (16->16 and 32->16 at
-   64^3, 32->32 and 64->32 at 32^3, 64->64 and 128->64 at 16^3, 128->128
-   and 256->128 at 8^3, 256->256 at 4^3, all 5^3, and the 1^3 16->3 output
-   conv), each with its launches per step: max |diff| <= DW_RTOL * max |dW|
-   and two kernel runs bitwise equal; kernel ms, TFLOP/s, bound, plain and
-   cuDNN weight-gradient ms, the planned regime; step-weighted sums (launches
-   x ms over the ten shapes). Then edge cases under the same checks: odd
+6. dW kernel vs its plain version at the nine distinct weight gradients of
+   the packed flagship step (``tools/dw_bench.py``'s ``dw_shapes``, from the
+   module tree), batch 96 bf16: 128->128 and the 256->128 skip splice at
+   3^3 on (32, 32, 32), at (3, 3, 5) on (16, 16, 32) and at (3, 5, 5) on
+   (8, 16, 16), 128->128 and 256->128 at 5^3 on 8^3 (direct), 256->256 at
+   5^3 on 4^3, each with its launches per step (21 in all): max |diff| <=
+   DW_RTOL * max |dW| and two kernel runs bitwise equal; kernel ms,
+   TFLOP/s, bound, plain and cuDNN weight-gradient ms, the planned regime;
+   step-weighted sums (launches x ms over the nine shapes). The direct
+   network's ten shapes (22 launches, the 1^3 output conv among them) under
+   the same checks, untimed. Then edge cases under the same checks: odd
    extents with Z % 16 != 0 in both tensor-core regimes, f16, float32 (the
    CUDA-core kernel), a g that is not channels-last, 1^3, 3^3 and 7^3
    kernels. Phase 1 has checked that the bf16 tensor-core kernels' SASS
@@ -68,14 +75,16 @@ non-zero before the result line:
    ``main`` on ``cuda`` at ``configs/config.json``'s network (16 channels,
    4 levels, PReLU, batch norm, dropout 0.01, weighted Sorensen, Adam,
    bf16) with patch 64^3, ``DropoutImpl``/``DwImpl`` ``pallas``, batch 4,
-   4 steps, on 8 synthetic 96x96x80 cases; finite losses, launch counts of
-   the module tree (21 dropout layers forward and backward, 22 stride-1
-   convolutions, per step), a checkpoint that restores;
+   4 steps, on 8 synthetic 96x96x80 cases; the trainer builds the packed
+   VNet; finite losses, launch counts of the module tree (21 dropout layers
+   forward and backward, 21 weight gradients on the dW kernel, per step), a
+   checkpoint that restores;
 8. the training step at ``bench.py``'s flagship workload (batch 96, 64^3,
-   random data; the port runs direct convolutions, ``bench.py`` the JAX
-   model's packed ones) through ``make_train_step``: median step time,
-   patches/s and peak memory, with the kernels and with ``xla`` dropout
-   and dW;
+   random data) through ``make_train_step``, the packed network (as the
+   trainer and ``bench.py`` build it) beside the direct one in the same
+   process: median step time over 3 steps after a warm-up, patches/s, peak
+   memory and the kernel launches a step (packed: 42 dropout and 21 dW;
+   direct: 42 and 22), with the kernels and with ``xla`` dropout and dW;
 9. BatchNorm statistics kernels (``bn_stats``, ``bn_grad_stats``) vs their
    plain versions in bf16 at the flagship step's BN inputs, batch 96
    ((64^3, 16), (32^3, 32), (8^3, 128), the (64^3, 3) output norm, and the
@@ -141,10 +150,24 @@ non-zero before the result line:
    0: median step time over 6 steps after 2 warm-ups, patches/s, peak
    memory, dropout launches a step and whether every dropout input is
    channels-last; the dropout kernel vs its plain version at the 2D
-   network's largest dropout, (32, 16, 256, 256) bf16 channels-last,
+   packed network's largest dropout, (32, 64, 128, 128) bf16 channels-last,
    ``xla``: bitwise equal, survivors ``x / keep_d``, backward mask = forward
    mask for a gradient that is not channels-last, a channels-last output;
    bitwise at the other four 2D shapes; the plain version's time;
+18. (run right after phase 3) the packed network against the direct one
+   on the card, float32 with TF32 off, 8 channels, 2 levels, 16^3 (and
+   32^2), ``PackedTargetLanes`` 64 (factors (2, 2, 2), (2, 2, 1), (2, 1, 1)):
+   logits, every parameter gradient and the running averages of a training
+   step within ``PACKED_RTOL`` of the largest of their kind, with one and
+   two input channels and in 2D;
+19. (run before phase 17) one training step (``Trainer.train_step``) and one
+   evaluation (``Evaluator.evaluate_case`` of a synthetic 96x96x80 case) on
+   the card for each network name this port added: ``UNet``, ``Dense`` (at
+   32^3) and ``VNetLegacy`` at ``configs/config.json``'s settings, bf16,
+   batch 2: finite losses, labels in {0, 1, 2}, finite probability maps of
+   the case's shape; ``VNetLegacy`` with the kernels (42 dropout and 21 dW
+   launches a step), ``UNet`` (11 dropout layers) and ``Dense`` (4) with
+   the ``xla`` flavour of the dropout kernel, twice a layer a step;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -197,6 +220,11 @@ SEED = 0
 # phase 3: f32 on the card (TF32 off) vs f32 on the CPU differ only by
 # summation order; allowed max |diff| relative to the largest CPU logit
 FORWARD_RTOL = 1e-3
+# phase 18: the packed network vs the direct one on the card, f32 with TF32
+# off: the same function by two computations, summed in other orders;
+# allowed max |diff| relative to the largest entry of its kind (logits;
+# gradients; running averages), as the CPU tests hold the port to JAX
+PACKED_RTOL = 1e-4
 # phase 6: sums of bf16 products (exact in float32) over up to 25M positions,
 # in another order than the plain version's: tensor-core sums over at most
 # 512 positions, float32 beyond; allowed max |diff| relative to max |dW|
@@ -213,6 +241,10 @@ BF16_ULP = 2.0 ** -7  # bf16 spacing relative to a value's binade
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 TRAIN_PATCH = (64, 64, 64)
+# the packed flagship's largest dropout input (level 0: 64^3 x 16 channels
+# packed (2, 2, 2)) and the 2D network's (256^2 x 16 packed (2, 2))
+FLAGSHIP_DROP = (96, 128, 32, 32, 32)
+DROP_2D = (32, 64, 128, 128)
 TRAIN_CASE = (96, 96, 80)
 FLAGSHIP_BATCH = 96
 ATT_BATCH = 8  # config_attention_multimodal.json's BatchSize
@@ -758,7 +790,7 @@ def phase_dropout():
 
     rate, seed, stream = 0.01, 20261016, 3
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn((FLAGSHIP_BATCH, 16) + TRAIN_PATCH, generator=gen,
+    x = torch.randn(FLAGSHIP_DROP, generator=gen,
                     device="cuda").to(torch.bfloat16).contiguous(
                         memory_format=torch.channels_last_3d)
     nonzero = x != 0
@@ -831,13 +863,6 @@ def _dropout_ragged(gen, seed, stream):
         check(quotient, f"dropout xla ragged {dtype}: survivors != x/keep_d")
 
 
-DW_SHAPES = (  # (Ci, Co, side, k, launches per step) at batch 96: the ten
-    # distinct stride-1 weight gradients of the flagship step
-    # (vnet_tpu_torch/models/vnet.py: 21 5^3 block convs, the 1^3 output conv)
-    (16, 16, 64, 5, 1), (32, 16, 64, 5, 1), (32, 32, 32, 5, 3),
-    (64, 32, 32, 5, 1), (64, 64, 16, 5, 5), (128, 64, 16, 5, 1),
-    (128, 128, 8, 5, 5), (256, 128, 8, 5, 1), (256, 256, 4, 5, 3),
-    (16, 3, 64, 1, 1))
 DW_EDGE = (  # (B, Ci, Co, (X, Y, Z), k, dtype, g channels-last)
     (3, 16, 16, (9, 11, 13), 5, torch.bfloat16, True),   # ragged, narrow
     (2, 64, 32, (7, 5, 9), 5, torch.bfloat16, True),     # ragged, wide
@@ -867,61 +892,83 @@ def _dw_agree(x, g, ks, label):
     return err, scale
 
 
-def phase_dw():
-    """dW kernel vs plain at the flagship step's ten weight-gradient shapes
-    and at edge cases; the kernels line reports the step-weighted sums
-    (launches per step x ms)."""
+def _dw_shape(ci, co, vol, ks, n, gen, timed, prefix):
+    """One of a step's weight-gradient shapes at batch 96: the kernel held
+    against its plain version; with ``timed``, kernel, plain and cuDNN ms
+    and the bound. Returns the row of numbers."""
     from vnet_tpu_torch.ops.dw_conv import dw_conv, dw_conv_plain, plan
+    from vnet_tpu_torch.tools.dw_bench import step_bound_ms
+
+    cl = torch.channels_last_3d
+    x = torch.randn((FLAGSHIP_BATCH, ci) + vol, generator=gen,
+                    device="cuda").to(torch.bfloat16).contiguous(
+                        memory_format=cl)
+    g = torch.randn((FLAGSHIP_BATCH, co) + vol, generator=gen,
+                    device="cuda").to(torch.bfloat16).contiguous(
+                        memory_format=cl)
+    p = plan(FLAGSHIP_BATCH, vol, ci, co, ks, x.dtype)
+    label = f"{ci}->{co} k{ks} at {vol}"
+    err, scale = _dw_agree(x, g, ks, label)
+    w = torch.empty((co, ci) + ks, dtype=torch.bfloat16, device="cuda")
+    pad = tuple((k - 1) // 2 for k in ks)
+    bound_ms, flops, nbytes = step_bound_ms(
+        ci, co, vol, ks, FLAGSHIP_BATCH, BF16_FLOPS, HBM_BYTES_PER_S)
+    row = dict(max_abs_err=err, bound_ms=bound_ms, flops=flops,
+               bytes=nbytes)
+    if timed:
+        row["ms"] = time_ms(lambda: dw_conv(x, g, ks), reps=5)
+        row["plain_ms"] = time_ms(lambda: dw_conv_plain(x, g, ks), reps=1,
+                                  warmup=False)
+        row["library_ms"] = time_ms(lambda: torch.ops.aten.convolution_backward(
+            g, x, w, None, (1, 1, 1), pad, (1, 1, 1), False, (0, 0, 0), 1,
+            (False, True, False)), reps=5)
+    times = (f"kernel {row['ms']:.3f} ms ({flops / row['ms'] / 1e9:.1f} "
+             f"TFLOP/s) plain {row['plain_ms']:.3f} ms cuDNN "
+             f"{row['library_ms']:.3f} ms " if timed else "")
+    say(f"{prefix} dW {label} batch {FLAGSHIP_BATCH} bf16, x{n} per step, "
+        f"{p.regime} (tiles {p.tiles} brick {p.brick} ry {p.ry} chunks "
+        f"{p.chunks}): max|diff| {err:.3e} max|dW| {scale:.3e} "
+        f"({err / scale:.2e} of it, tolerance {DW_RTOL:g}), bitwise run to "
+        f"run; {times}bound {bound_ms:.4f} ms ({flops / 1e12:.3f} TFLOP, "
+        f"{nbytes / 1e9:.3f} GB)")
+    del x, g, w
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_dw():
+    """dW kernel vs plain at the packed flagship step's nine weight-gradient
+    shapes (timed; the kernels line reports the step-weighted sums,
+    launches per step x ms), at the direct step's ten (held, not timed) and
+    at edge cases."""
+    from vnet_tpu_torch.ops.dw_conv import plan
+    from vnet_tpu_torch.tools.dw_bench import dw_shapes
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cl = torch.channels_last_3d
     total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                  library_ms=0.0, flops=0.0, bytes=0.0)
-    check(sum(s[-1] for s in DW_SHAPES) == 22, "DW_SHAPES launches != 22")
-    for ci, co, side, k, n in DW_SHAPES:
-        vol = (side,) * 3
-        x = torch.randn((FLAGSHIP_BATCH, ci) + vol, generator=gen,
-                        device="cuda").to(torch.bfloat16).contiguous(
-                            memory_format=cl)
-        g = torch.randn((FLAGSHIP_BATCH, co) + vol, generator=gen,
-                        device="cuda").to(torch.bfloat16).contiguous(
-                            memory_format=cl)
-        ks = (k,) * 3
-        p = plan(FLAGSHIP_BATCH, vol, ci, co, ks, x.dtype)
-        label = f"{ci}->{co} k{k} at {side}^3"
-        err, scale = _dw_agree(x, g, ks, label)
-        w = torch.empty((co, ci) + ks, dtype=torch.bfloat16, device="cuda")
-        pad = ((k - 1) // 2,) * 3
-        ms = time_ms(lambda: dw_conv(x, g, ks), reps=5)
-        plain_ms = time_ms(lambda: dw_conv_plain(x, g, ks), reps=1,
-                           warmup=False)
-        lib_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
-            g, x, w, None, (1, 1, 1), pad, (1, 1, 1), False, (0, 0, 0), 1,
-            (False, True, False)), reps=5)
-        flops = 2.0 * (x.numel() // ci) * k ** 3 * ci * co
-        nbytes = x.nbytes + g.nbytes + co * ci * k ** 3 * 4
-        bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        say(f"[6] dW {label} batch {FLAGSHIP_BATCH} bf16, x{n} per step, "
-            f"{p.regime} (tiles {p.tiles} brick {p.brick} ry {p.ry} chunks "
-            f"{p.chunks}): max|diff| {err:.3e} max|dW| "
-            f"{scale:.3e} ({err / scale:.2e} of it, tolerance {DW_RTOL:g}), "
-            f"bitwise run to run; kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
-            f"cuDNN {lib_ms:.3f} ms bound {bound_ms:.4f} ms "
-            f"({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB)")
-        total["max_abs_err"] = max(total["max_abs_err"], err)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("bound_ms", bound_ms),
-                       ("flops", flops), ("bytes", nbytes)):
-            total[key] += n * v
-        del x, g, w
-        torch.cuda.empty_cache()
+    packed = dw_shapes("packed")
+    check(len(packed) == 9 and sum(s[-1] for s in packed) == 21,
+          f"packed dW shapes {packed}")
+    for ci, co, vol, ks, n in packed:
+        row = _dw_shape(ci, co, vol, ks, n, gen, True, "[6] packed")
+        total["max_abs_err"] = max(total["max_abs_err"], row["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "flops",
+                    "bytes"):
+            total[key] += n * row[key]
     bound_by = ("operations" if total["flops"] / BF16_FLOPS
                 > total["bytes"] / HBM_BYTES_PER_S else "bytes")
-    say(f"[6] dW per step (22 launches, launches x ms over the ten shapes): "
-        f"kernel {total['ms']:.3f} ms, cuDNN {total['library_ms']:.3f} ms, "
-        f"plain {total['plain_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms "
-        f"({bound_by}, {total['flops'] / 1e12:.3f} TFLOP)")
+    say(f"[6] dW per packed step (21 launches, launches x ms over the nine "
+        f"shapes): kernel {total['ms']:.3f} ms, cuDNN "
+        f"{total['library_ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
+        f"bound {total['bound_ms']:.4f} ms ({bound_by}, "
+        f"{total['flops'] / 1e12:.3f} TFLOP)")
+    direct = dw_shapes("direct")
+    check(len(direct) == 10 and sum(s[-1] for s in direct) == 22,
+          f"direct dW shapes {direct}")
+    for ci, co, vol, ks, n in direct:
+        _dw_shape(ci, co, vol, ks, n, gen, False, "[6] direct")
     for b, ci, co, vol, k, dtype, g_cl in DW_EDGE:
         x = torch.randn((b, ci) + vol, generator=gen, device="cuda").to(
             dtype).contiguous(memory_format=cl)
@@ -990,6 +1037,7 @@ def phase_train(tmp):
     from vnet_tpu_torch.__main__ import main
     from vnet_tpu_torch.config import load_config
     from vnet_tpu_torch.io import MedicalImage, write_image
+    from vnet_tpu_torch.tools.dw_bench import dw_shapes
     from vnet_tpu_torch.train import Trainer, checkpoints
 
     cfg_path, cfg = _write_train_config(tmp)
@@ -1014,9 +1062,8 @@ def phase_train(tmp):
 
     steps = ts["MaxIterations"]
     n_dropout = len(state.network.dropouts)
-    n_dw = sum(1 for m in state.network.modules()
-               if getattr(m, "dw_impl", None) == "pallas"
-               and m.strides == (1, 1, 1))
+    # the module tree's weight gradients on the dW kernel at this patch
+    n_dw = sum(s[-1] for s in dw_shapes("packed", TRAIN_PATCH))
     with open(os.path.join(ts["LogDir"], "train", "scalars.jsonl")) as f:
         losses = [json.loads(line)["value"] for line in f
                   if '"loss/0.total_loss"' in line]
@@ -1024,12 +1071,15 @@ def phase_train(tmp):
         f"patch {TRAIN_PATCH}, in {wall:.2f} s (incl. data loading, model "
         f"build, first-call warm-up, checkpoints); losses {losses}; "
         f"launches {counts}; module tree: {n_dropout} dropout layers, "
-        f"{n_dw} stride-1 convs")
+        f"{n_dw} weight gradients on the dW kernel (packed)")
     check(state.step == steps, f"trained {state.step} steps, not {steps}")
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"losses {losses}")
-    check(n_dropout == 21 and n_dw == 22,
-          f"module tree: {n_dropout} dropouts, {n_dw} stride-1 convs")
+    check(type(state.network).__name__ == "VNet"
+          and state.network.conv_impl == "packed",
+          "the trainer did not build the packed VNet")
+    check(n_dropout == 21 and n_dw == 21,
+          f"module tree: {n_dropout} dropouts, {n_dw} dW launches a step")
     check(counts["dropout"] == 2 * n_dropout * steps,
           f"dropout launches {counts['dropout']} != {2 * n_dropout * steps}")
     check(counts["dw_conv"] == n_dw * steps,
@@ -1052,39 +1102,224 @@ def phase_train(tmp):
     return counts
 
 
-def _flagship_steps(impl, batch):
+def _flagship_steps(impl, batch, conv_impl):
     from vnet_tpu_torch.tools.profile_step import flagship_step, timed_steps
 
-    state, step, images, labels = flagship_step(impl, batch, seed=SEED)
+    state, step, images, labels = flagship_step(impl, batch, seed=SEED,
+                                                conv_impl=conv_impl)
     torch.cuda.reset_peak_memory_stats()
-    times, losses = timed_steps(state, step, images, labels, 4)
-    # the first step is warm-up
-    return (statistics.median(times[1:]), torch.cuda.max_memory_allocated(),
-            losses)
+    timed_steps(state, step, images, labels, 1)  # warm-up
+    reset_counts()
+    times, losses = timed_steps(state, step, images, labels, 3)
+    counts = read_counts()
+    return (statistics.median(times), torch.cuda.max_memory_allocated(),
+            losses, {k: v / 3 for k, v in counts.items() if v})
 
 
 def phase_flagship():
-    """``bench.py``'s flagship step (batch 96, 64^3), kernels vs library."""
+    """``bench.py``'s flagship step (batch 96, 64^3): the packed network
+    (as the trainer and ``bench.py`` build it) beside the direct one, each
+    with the kernels and with the library's dropout and dW."""
     result = {}
     for impl in ("pallas", "xla"):
-        batch = FLAGSHIP_BATCH
-        while True:
-            try:
-                ms, peak, losses = _flagship_steps(impl, batch)
-                break
-            except torch.cuda.OutOfMemoryError:
-                torch.cuda.empty_cache()
-                say(f"[8] {impl}: batch {batch} does not fit in memory")
-                check(batch > 8, "not even batch 8 fits")
-                batch //= 2
-        torch.cuda.empty_cache()
-        say(f"[8] flagship step, DropoutImpl/DwImpl {impl}: batch {batch} "
-            f"64^3 bf16: median {ms:.1f} ms per step, "
-            f"{batch / ms * 1e3:.1f} patches/s, peak memory "
-            f"{peak / 2 ** 30:.2f} GiB; losses {losses}")
-        check(all(np.isfinite(losses)), f"flagship losses {losses}")
-        result[impl] = (batch, ms)
+        for conv_impl in ("packed", "direct"):
+            batch = FLAGSHIP_BATCH
+            while True:
+                try:
+                    ms, peak, losses, per_step = _flagship_steps(
+                        impl, batch, conv_impl)
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    torch.cuda.empty_cache()
+                    say(f"[8] {conv_impl} {impl}: batch {batch} does not "
+                        f"fit in memory")
+                    check(batch > 8, "not even batch 8 fits")
+                    batch //= 2
+            torch.cuda.empty_cache()
+            say(f"[8] flagship step, {conv_impl}, DropoutImpl/DwImpl {impl}: "
+                f"batch {batch} 64^3 bf16: median {ms:.1f} ms per step "
+                f"(3 steps after a warm-up), {batch / ms * 1e3:.1f} "
+                f"patches/s, peak memory {peak / 2 ** 30:.2f} GiB; losses "
+                f"{losses}; kernel launches a step {per_step}")
+            check(all(np.isfinite(losses)), f"flagship losses {losses}")
+            if impl == "pallas":
+                expect = ({"dropout": 42, "dw_conv": 21}
+                          if conv_impl == "packed"
+                          else {"dropout": 42, "dw_conv": 22})
+                check(per_step == expect, f"{conv_impl} flagship launches "
+                                          f"{per_step}, expected {expect}")
+            result[(conv_impl, impl)] = (batch, ms)
+    say("[8] packed vs direct, same process: " + ", ".join(
+        f"{impl} {result[('packed', impl)][1]:.1f} vs "
+        f"{result[('direct', impl)][1]:.1f} ms" for impl in ("pallas", "xla")))
     return result
+
+
+def _train_and_grads(net, x, cot):
+    """One training-mode forward of ``net`` on ``x``, ``sum(out * cot)``
+    backward: logits, parameter gradients, running averages."""
+    net.train()
+    for p in net.parameters():
+        p.grad = None
+    out = net(x, dropout_seed=0)
+    (out * cot).sum().backward()
+    grads = {k: p.grad.detach().clone() for k, p in net.named_parameters()}
+    stats = {k: v.clone() for k, v in net.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return out.detach(), grads, stats
+
+
+def _max_rel(got, ref) -> float:
+    """max |got - ref| over a kind's tensors, relative to its largest
+    |ref| entry."""
+    scale = max(v.abs().max().item() for v in ref.values())
+    return max((got[k] - v).abs().max().item() for k, v in ref.items()) / scale
+
+
+def phase_packed_vs_direct():
+    """The packed network against the direct one on the card (phase 18):
+    float32 with TF32 off, 8 channels, 2 levels, 16^3 (2D: 32^2),
+    PackedTargetLanes 64 (levels (2, 2, 2), (2, 2, 1) and a (2, 1, 1)
+    bottom in 3D), DwImpl pallas (the dW kernel's float32 path on the
+    packed shapes): logits, every parameter gradient and the running
+    averages of one training step, 3D with one and two input channels and
+    2D. At 3 levels and 32^3 the two computations' gradients differ by
+    more than PACKED_RTOL of the largest on the CPU, in JAX as in the port:
+    batch norm's E[x^2] - E[x]^2 over other summation orders (PERF.md); at
+    this size they agree well inside it."""
+    from vnet_tpu_torch.models import build_network
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED)
+    for rank, patch, in_ch in ((3, (16, 16, 16), 1), (3, (16, 16, 16), 2),
+                               (2, (32, 32), 1)):
+        kw = dict(num_classes=3, in_channels=in_ch, num_channels=8,
+                  num_levels=2, num_convolutions=(1, 2),
+                  bottom_convolutions=2, dropout_rate=0.0, device="cuda",
+                  dw_impl="pallas", spatial_rank=rank,
+                  packed_target_lanes=64,
+                  generator=torch.Generator().manual_seed(SEED))
+        packed = build_network("VNet", **kw)
+        direct = build_network("VNet", conv_impl="direct", **kw)
+        direct.load_state_dict(packed.state_dict())
+        x = torch.from_numpy(rng.normal(50.0, 20.0, size=(2,) + patch + (
+            in_ch,)).astype(np.float32)).cuda()
+        cot = torch.from_numpy(rng.normal(size=(2,) + patch + (3,)).astype(
+            np.float32)).cuda()
+        reset_counts()
+        out_p, grads_p, stats_p = _train_and_grads(packed, x, cot)
+        launches = read_counts()["dw_conv"]
+        out_d, grads_d, stats_d = _train_and_grads(direct, x, cot)
+        errs = (_max_rel({"": out_p}, {"": out_d}), _max_rel(grads_p, grads_d),
+                _max_rel(stats_p, stats_d))
+        plan = packed.plan(patch)
+        levels = [f if ok else None for ok, f in
+                  plan["encoder"] + [plan["bottom"]]]
+        say(f"[18] packed vs direct, f32 TF32 off, {rank}D patch {patch} "
+            f"{in_ch} input channel(s), levels {levels}: max|diff| / max "
+            f"logits {errs[0]:.2e}, gradients {errs[1]:.2e}, running "
+            f"averages {errs[2]:.2e} (tolerance {PACKED_RTOL:g}); dW kernel "
+            f"launches of the packed step {launches}")
+        check(bool(torch.isfinite(out_p).all()), "packed logits not finite")
+        check(max(errs) <= PACKED_RTOL,
+              f"packed and direct differ on the card: {errs}")
+        check(rank == 2 or launches > 0, "the packed step launched no dW")
+        del packed, direct
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(tmp):
+    """One training step and one evaluation on the card for each name this
+    port added to the zoo (phase 19): ``configs/config.json``'s network
+    settings with ``Name`` UNet, Dense and VNetLegacy, bf16, batch 2 at
+    64^3 (Dense at 32^3: one output unit per voxel and class), through
+    ``Trainer.train_step`` and ``Evaluator.evaluate_case`` on a synthetic
+    96x96x80 case; VNetLegacy with the kernels (``pallas``: 42 dropout and
+    21 dW launches a step), UNet and Dense with the ``xla`` flavour (flax's
+    dropout, which their JAX modules take), launched twice a layer."""
+    import yaml
+
+    from vnet_tpu_torch.config import load_config
+    from vnet_tpu_torch.infer.evaluator import Evaluator
+    from vnet_tpu_torch.io import MedicalImage, write_image
+    from vnet_tpu_torch.train import Trainer
+
+    rng = np.random.default_rng(SEED)
+    img, _ = _train_case(rng)
+    case_dir = os.path.join(tmp, "evaluate", "case_0")
+    os.makedirs(case_dir)
+    write_image(MedicalImage(img, (0.75,) * 3),
+                os.path.join(case_dir, "image.nii"))
+    for name, patch in (("UNet", TRAIN_PATCH), ("Dense", (32, 32, 32)),
+                        ("VNetLegacy", TRAIN_PATCH)):
+        with open(TRAIN_CONFIG) as f:
+            cfg = json.load(f)
+        ts, es = cfg["TrainingSetting"], cfg["EvaluationSetting"]
+        pipeline = os.path.join(tmp, "pipeline.yaml")
+        crop = {"output_size": list(patch)}
+        with open(pipeline, "w") as f:
+            yaml.safe_dump({"preprocess": {"evaluate": {"3D": [
+                {"name": "StatisticalNormalization",
+                 "variables": {"sigma": 2.5}},
+                {"name": "Padding", "variables": crop}]}}}, f)
+        kernels = name == "VNetLegacy"
+        ts["Networks"].update(Name=name,
+                              DropoutImpl="pallas" if kernels else "xla",
+                              DwImpl="pallas" if kernels else "xla")
+        ts.update(PatchShape=list(patch), BatchSize=2, Pipeline=pipeline,
+                  LogDir=os.path.join(tmp, "log"),
+                  CheckpointDir=os.path.join(tmp, "ckpt"))
+        es.update(Stride=list(patch), BatchSize=2, Pipeline=pipeline,
+                  CheckpointPath=ts["CheckpointDir"])
+        es["Data"]["EvaluateDataDirectory"] = os.path.join(tmp, "evaluate")
+        path = os.path.join(tmp, f"config_{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f, indent=1)
+        trainer = Trainer(load_config(path), device="cuda", log=False)
+        net = trainer.network
+        check(type(net).__name__ == ("VNet" if kernels else name),
+              f"{name} built {type(net).__name__}")
+        shape = (2,) + patch
+        images = rng.normal(0.0, 1.0, size=shape + (1,)).astype(np.float32)
+        labels = rng.integers(0, 3, size=shape).astype(np.int32)
+        state = trainer.init_state()
+        trainer.train_step(state, images, labels, 7)  # warm-up
+        reset_counts()
+        t0 = time.perf_counter()
+        out = trainer.train_step(state, images, labels, 8)
+        loss = float(out.loss)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in read_counts().items() if v}
+        evaluator = Evaluator(load_config(path),
+                              state_dict=net.state_dict(), device="cuda")
+        t0 = time.perf_counter()
+        written, probs = evaluator.evaluate_case(case_dir)
+        eval_s = time.perf_counter() - t0
+        labels_out = set(np.unique(np.asarray(written.data)).tolist())
+        finite = all(bool(np.isfinite(np.asarray(pr.data)).all())
+                     for pr in probs)
+        say(f"[19] {name} (config.json settings, bf16, batch 2, patch "
+            f"{patch}): train step {step_ms:.1f} ms (host clock, after a "
+            f"warm-up), loss {loss:.5f}, launches {counts}; evaluation of "
+            f"a {TRAIN_CASE} case {eval_s:.2f} s: labels {sorted(labels_out)}"
+            f", {len(probs)} probability maps, finite {finite}")
+        check(np.isfinite(loss), f"{name}: loss {loss}")
+        check(labels_out <= {0, 1, 2}, f"{name}: labels {labels_out}")
+        check(len(probs) == 3 and finite,
+              f"{name}: probability maps not finite")
+        check(tuple(written.data.shape) == TRAIN_CASE,
+              f"{name}: label shape {written.data.shape}")
+        # every dropout flavour runs the kernel on the card: each layer
+        # launches it forward and backward
+        expect = {"dropout": 2 * len(net.dropouts)}
+        if kernels:
+            expect["dw_conv"] = 21
+            check(len(net.dropouts) == 21, "VNetLegacy dropout layers")
+        check(counts == expect, f"{name} step launches {counts}, expected "
+                                f"{expect}")
+        del trainer, evaluator, state, net
+        torch.cuda.empty_cache()
 
 
 BN_SHAPES = (  # (shape, groups): the flagship step's BN inputs at batch 96
@@ -1985,7 +2220,7 @@ def _dropout_2d(gen):
 
     rate, seed, stream = 0.01, 20261017, 3
     params = dropout_params(rate, "xla")
-    x = (torch.randn((BATCH_2D, 16) + PATCH_2D, generator=gen, device="cuda")
+    x = (torch.randn(DROP_2D, generator=gen, device="cuda")
          * 30.0).to(torch.bfloat16).contiguous(
              memory_format=torch.channels_last)
     out_k = dropout_apply(x, seed, stream, *params)
@@ -2023,7 +2258,7 @@ def _dropout_2d(gen):
     del x
     torch.cuda.empty_cache()
     shapes = [s for s, _ in dropout_shapes("2d")]
-    check(len(shapes) == 5 and shapes[0] == (BATCH_2D, 16) + PATCH_2D,
+    check(len(shapes) == 5 and shapes[0] == DROP_2D,
           f"2D dropout shapes {shapes}")
     for shape in shapes[1:]:
         err = max(err, _dropout_equal(shape, ("xla",), gen, seed, stream,
@@ -2054,6 +2289,7 @@ def run():
     blend, blend_2d = phase_kernel_vs_plain(card)
     rows, n_rows = phase_rows()
     phase_forward_card_vs_cpu()
+    phase_packed_vs_direct()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_")
     try:
         launches, _, _ = phase_main_path(tmp)
@@ -2081,6 +2317,11 @@ def run():
         phase_attention_cli(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_zoo_")
+    try:
+        phase_zoo(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     drop_rows, drop_sums = phase_dropout_times()
 
     def timed(shape, impl):
@@ -2091,9 +2332,9 @@ def run():
                     event_ms=r["event_ms"], call_ms=r["call_ms"],
                     host_us=r["host_us"])
 
-    drop.update(timed((FLAGSHIP_BATCH, 16) + TRAIN_PATCH, "xla"),
+    drop.update(timed(FLAGSHIP_DROP, "xla"),
                 per_shape=drop_rows, per_step=drop_sums)
-    drop_2d.update(timed((BATCH_2D, 16) + PATCH_2D, "xla"))
+    drop_2d.update(timed(DROP_2D, "xla"))
     own = "its own phase ({}); no entry point reaches it"
     say(json.dumps({"kernels": [
         dict(name="blend_accumulate_patches", route="cuda",
@@ -2111,23 +2352,23 @@ def run():
              launches_in="phase 7 (training, pallas flavour), phase 13 "
                          "(attention step, xla flavour) and phase 15 (2D "
                          "training, xla flavour)",
-             times_are="xla flavour at (96, 16, 64, 64, 64) bf16: device "
+             times_are="xla flavour at (96, 128, 32, 32, 32) bf16: device "
                        "ms a launch, the median of a profiler trace "
                        "(event_ms: CUDA events around 50 launches; call_ms: "
                        "around one wrapper call, host time included; "
                        "host_us: the wrapper's host time a call); "
                        "per_shape: every "
-                       "dropout shape of the flagship, attention and 2D "
-                       "steps; per_step: launches x device ms summed",
-             at_2d=dict(shape="(32, 16, 256, 256) bf16 channels-last, xla",
+                       "dropout shape of the packed flagship, attention and "
+                       "2D steps; per_step: launches x device ms summed",
+             at_2d=dict(shape="(32, 64, 128, 128) bf16 channels-last, xla",
                         **drop_2d), **drop),
         dict(name="dw_conv_pallas", route="cuda",
              source="vnet_tpu_torch/csrc/dw_conv.cu",
              replaces="vnet_tpu/ops/pallas/dw_conv.py:209",
              launches=train_counts["dw_conv"],
-             launches_in="phase 7 (training)",
-             times_are="per training step: launches per step x ms, summed "
-                       "over phase 6's ten shapes", **dw),
+             launches_in="phase 7 (training, packed)",
+             times_are="per packed training step: launches per step x ms, "
+                       "summed over phase 6's nine packed shapes", **dw),
         dict(name="bn_stats", route="cuda",
              source="vnet_tpu_torch/csrc/bn_stats.cu",
              replaces="vnet_tpu/ops/pallas/fused.py:96", launches=n_stats,

@@ -1,5 +1,6 @@
 """``tools/dropout_bench.py`` on the CPU: the dropout shapes it lists come
-from the module trees of the three main-path steps, and a real training
+from the module trees of the three main-path steps (packed networks, as the
+trainer builds them), and a real training
 step of each launches the dropout wrapper twice per listed layer, at those
 shapes. The timing needs a card; the enumeration, the launch count, the
 layout-copy count and the variant sources do not."""
@@ -16,14 +17,16 @@ from vnet_tpu_torch.tools import dropout_bench, profile_step
 # the module, not the function that vnet_tpu_torch.ops re-exports
 dropout_ops = importlib.import_module("vnet_tpu_torch.ops.dropout")
 
-FLAGSHIP = [((96, 16, 64, 64, 64), 2), ((96, 32, 32, 32, 32), 4),
-            ((96, 64, 16, 16, 16), 6), ((96, 128, 8, 8, 8), 6),
+# the packed networks the trainer builds (PackedTargetLanes 128): the same
+# elements as the direct networks' dropout inputs, in packed shapes
+FLAGSHIP = [((96, 128, 32, 32, 32), 2), ((96, 128, 16, 16, 32), 4),
+            ((96, 128, 8, 16, 16), 6), ((96, 128, 8, 8, 8), 6),
             ((96, 256, 4, 4, 4), 3)]
-ATTENTION = [((8, 16, 64, 64, 64), 2), ((8, 32, 32, 32, 32), 4),
-             ((8, 64, 16, 16, 16), 6), ((8, 128, 8, 8, 8), 6),
+ATTENTION = [((8, 128, 32, 32, 32), 2), ((8, 128, 16, 16, 32), 4),
+             ((8, 128, 8, 16, 16), 6), ((8, 128, 8, 8, 8), 6),
              ((8, 256, 4, 4, 4), 3), ((8, 64, 64, 64, 64), 12)]
-TWO_D = [((32, 16, 256, 256), 2), ((32, 32, 128, 128), 4),
-         ((32, 64, 64, 64), 6), ((32, 128, 32, 32), 6),
+TWO_D = [((32, 64, 128, 128), 2), ((32, 128, 64, 64), 4),
+         ((32, 128, 32, 64), 6), ((32, 128, 32, 32), 6),
          ((32, 256, 16, 16), 3)]
 
 

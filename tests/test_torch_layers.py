@@ -1,13 +1,15 @@
 """Port layers and the whole VNet against the JAX modules, eval mode.
 
 Same numpy inputs and the same (converted) variables go through the flax
-module and its port. The JAX VNet runs as the evaluator builds it
-(``conv_impl="packed"``: the exact space-to-depth rewrite), the port runs
-direct convolutions, so sums are taken in another order: float32 cases
+module and its port. Both VNets run as their evaluators build them
+(``conv_impl="packed"``: the exact space-to-depth rewrite, adaptive
+packing at 128 lanes); the single layers run direct on the port's side.
+Sums are taken in another order in the two frameworks: float32 cases
 compare at ``atol = rtol = 1e-4``; the bfloat16 case, which rounds at
 other places in the two frameworks (8-bit mantissa, errors compound over
 the network's depth), at ``atol = 0.25, rtol = 0.1`` per element and a
-mean absolute error below 0.02.
+mean absolute error below 0.02. ``tests/test_torch_packed_vnet.py`` holds
+the packed network in training mode.
 """
 
 import jax

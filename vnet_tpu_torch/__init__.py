@@ -13,8 +13,11 @@ on-device augmentation, TensorBoard event files and image logs, traces),
 with dropout and the weight gradient of the stride-1 convolutions as
 hand-written CUDA kernels (``csrc/dropout.cu``, ``csrc/dw_conv.cu``), and
 whole-volume 3D evaluation (``-p evaluate``), with the sliding-window blend
-as one (``csrc/blend_accumulate.cu``). Convolutions otherwise run through
-cuDNN.
+as one (``csrc/blend_accumulate.cu``). The networks are JAX's zoo (VNet,
+VNetLegacy, UNet, Dense, AttentionVNet), built as JAX's trainer builds
+them: the V-Nets' convolutions packed by space-to-depth (``ops/s2d.py``)
+unless ``conv_impl="direct"`` is asked for. Convolutions otherwise run
+through cuDNN, the packed network's strided ones as matrix products.
 Kernels are built with ``nvcc`` for ``sm_90a`` at first use
 (``ops/build.py``).
 """

@@ -14,8 +14,12 @@ convolution layouts change.
 | ``batch_stats .../mean``, ``var`` | ``running_mean``, ``running_var`` | — |
 
 The layouts are rank-generic: a 2D kernel is HWIO <-> OIHW, a 3D one DHWIO
-<-> OIDHW, and a convolution kernel is any leaf of rank 3 or more (every
-other leaf is a per-channel vector). The transpose convolution needs the
+<-> OIDHW, a dense kernel (the ``Dense`` network's ``dense_i``,
+``output_dense``) ``(in, out)`` <-> ``nn.Linear``'s ``(out, in)``; a kernel
+is any leaf of rank 2 or more (every other leaf is a per-channel vector).
+Names carry over as they are, ``pre_norm_i`` (``VNetLegacy``) and
+``concat_norm`` (``UNet``) among them. A packed network has the variables
+of a direct one, so one checkpoint serves both. The transpose convolution needs the
 flip, over its spatial axes only, because ``lax.conv_transpose`` does not
 flip its kernel while ``F.conv_transpose3d`` (or ``2d``) is the adjoint of a
 convolution; with the port's ``(in, out, ...)`` weight layout that is a
@@ -49,8 +53,9 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def kernel_to_torch(kernel: np.ndarray, transpose: bool) -> np.ndarray:
-    """``(*k, I, O)`` conv kernel (HWIO, DHWIO) -> ``F.conv2d`` /
-    ``F.conv3d``'s ``(O, I, *k)`` or, for a transpose convolution,
+    """``(*k, I, O)`` conv kernel (HWIO, DHWIO; a dense ``(I, O)``) ->
+    ``F.conv2d`` / ``F.conv3d``'s ``(O, I, *k)`` or, for a transpose
+    convolution,
     ``F.conv_transpose2d`` / ``3d``'s ``(I, O, *k)``, spatially flipped."""
     spatial = tuple(range(kernel.ndim - 2))
     i, o = kernel.ndim - 2, kernel.ndim - 1
@@ -95,7 +100,7 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             collection, name = "batch_stats", leaf[len("running_"):]
         elif leaf == "bias":
             collection, name = "params", "bias"
-        elif arr.ndim >= 3:  # a 2D or 3D convolution's kernel
+        elif arr.ndim >= 2:  # a convolution's or a dense layer's kernel
             collection, name = "params", "kernel"
             arr = kernel_to_flax(arr, transpose=path[-2:-1] == ("deconv",))
         else:

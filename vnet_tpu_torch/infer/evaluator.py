@@ -17,6 +17,10 @@ each slice's label and probabilities are resampled onto the original slice
 and pasted into the volume. ``EvalNorm: batch_stats`` keeps the reference's
 documented 2D behaviour (batch statistics of patches that straddle slices).
 
+The network is built as the JAX evaluator builds it: packed convolutions
+at the config's ``PackedTargetLanes``, ``VNetLegacy``'s double norm, any
+name of the zoo (``Dense`` at the training ``PatchShape``).
+
 ``Attention: true`` evaluates ``AttentionVNet`` and blends its first
 output, the refined logits. Weights come from ``state_dict`` or from the
 newest port checkpoint under ``EvaluationSetting.CheckpointPath``
@@ -85,7 +89,10 @@ class Evaluator:
             num_channels=net_cfg.num_channel, num_levels=net_cfg.num_levels,
             num_convolutions=net_cfg.num_convolutions,
             bottom_convolutions=net_cfg.bottom_convolutions, norm=norm,
-            dtype=dtype, device=self.device, spatial_rank=self.t.dimension)
+            packed_target_lanes=net_cfg.packed_target_lanes,
+            legacy_double_norm=net_cfg.name == "VNetLegacy",
+            dtype=dtype, device=self.device, spatial_rank=self.t.dimension,
+            patch_shape=self.t.patch_shape)
         if state_dict is None:
             state_dict = self._restore_state_dict()
         self.network.load_state_dict(state_dict)

@@ -1,12 +1,14 @@
-"""Model factory — counterpart of ``vnet_tpu/models/__init__.py``.
+"""Model zoo and factory — counterpart of ``vnet_tpu/models/__init__.py``.
 
-``VNet`` (2D or 3D) and the attention-gated ``AttentionVNet`` (3D) are
-ported; the other names of the JAX zoo, and a 2D ``AttentionVNet``, raise
-``NotImplementedError`` (see ROADMAP.md).
+The names of the JAX zoo: ``VNet`` and ``VNetLegacy`` (its
+``legacy_double_norm`` topology), ``UNet`` and ``Dense`` (2D or 3D), and
+the attention-gated ``AttentionVNet`` (3D; a 2D one raises
+``NotImplementedError``, see ROADMAP.md). ``FCN`` raises as in JAX.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -14,9 +16,11 @@ import torch
 from ..device import resolve_device
 from .attention import (AttentionGatedVNet, AttentionModule, OutputModule,
                         attention_distance_loss)
+from .dense import Dense
+from .unet import UNet
 from .vnet import VNet
 
-_NOT_PORTED = ("VNetLegacy", "UNet", "Dense")
+NETWORKS = ("VNet", "VNetLegacy", "UNet", "Dense", "AttentionVNet")
 
 
 def eval_apply(network: torch.nn.Module, x: torch.Tensor):
@@ -36,35 +40,77 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
                   norm: str = "batch", dtype: torch.dtype = torch.float32,
                   device="cuda",
                   generator: Optional[torch.Generator] = None,
-                  dropout_impl: str = "xla", dw_impl: str = "xla",
+                  conv_impl: str = "packed", packed_target_lanes: int = 128,
+                  dropout_impl: str = "xla", remat: bool = False,
+                  legacy_double_norm: bool = False, dw_impl: str = "xla",
                   attention_channels: int = 64,
-                  spatial_rank: int = 3) -> torch.nn.Module:
-    """Instantiate a network from config values. Parameters are
-    initialised on the CPU from ``generator`` (flax's initialisers: Xavier
-    uniform convs, truncated-normal attention-head convs, zero biases,
+                  spatial_rank: int = 3,
+                  patch_shape=None) -> torch.nn.Module:
+    """Instantiate a network from config values, with JAX's defaults
+    (``conv_impl="packed"``, ``packed_target_lanes=128``; UNet and Dense
+    ReLU, the V-Nets PReLU). Parameters are initialised on the CPU from
+    ``generator`` (flax's initialisers: Xavier uniform convs, truncated
+    normal attention-head convs, LeCun normal dense kernels, zero biases,
     PReLU 0.1, unit BN scale) and then moved to ``device`` (``cuda`` unless
     the caller asks for the CPU; no CUDA device raises).
     ``AttentionVNet`` passes ``dropout_impl`` to the backbone and the heads
-    and ``dw_impl`` to the backbone. ``spatial_rank`` (2 or 3) is the
-    number of spatial axes, ``len(PatchShape)``."""
+    and ``conv_impl``, ``packed_target_lanes``, ``legacy_double_norm`` and
+    ``dw_impl`` to the backbone. ``spatial_rank`` (2 or 3) is the number of
+    spatial axes, ``len(PatchShape)``; ``Dense`` needs ``patch_shape`` (its
+    output layer has one unit per voxel and class). ``remat`` is not
+    ported: it warns and is ignored, as ``DropoutImpl``, ``DwImpl`` and
+    ``Remat`` are on UNet and Dense in JAX."""
     device = resolve_device(device)
     if name == "FCN":
         raise NotImplementedError("Network to be developed")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"network {name!r} is not ported to PyTorch yet (ROADMAP.md)")
-    if name not in ("VNet", "AttentionVNet"):
+    if name not in NETWORKS:
         raise ValueError(f"Invalid network: {name!r}")
     if name == "AttentionVNet" and spatial_rank != 3:
         raise NotImplementedError(
             "a 2D AttentionVNet is not ported to PyTorch yet (ROADMAP.md)")
+    if name in ("UNet", "Dense"):
+        # plain dropout and convolutions: a VNet-only knob must not
+        # silently no-op (vnet_tpu/models/__init__.py:507-516)
+        unsupported = [k for k, on in (("DropoutImpl", dropout_impl != "xla"),
+                                       ("DwImpl", dw_impl != "xla"),
+                                       ("Remat", remat)) if on]
+        if unsupported:
+            warnings.warn(f"{name} does not implement "
+                          f"{', '.join(unsupported)}; ignoring", stacklevel=2)
+    elif remat:
+        warnings.warn("Remat is not ported to PyTorch (ROADMAP.md); "
+                      "ignoring", stacklevel=2)
+    if name == "UNet":
+        net = UNet(num_classes=num_classes, in_channels=in_channels,
+                   num_channels=num_channels, num_levels=num_levels,
+                   num_convolutions=(num_convolutions[0]
+                                     if isinstance(num_convolutions,
+                                                   (list, tuple))
+                                     else num_convolutions),
+                   bottom_convolutions=bottom_convolutions,
+                   dropout_rate=dropout_rate,
+                   activation=activation or "relu", norm=norm, dtype=dtype,
+                   generator=generator, conv_impl=conv_impl,
+                   spatial_rank=spatial_rank)
+        return net.to(device)
+    if name == "Dense":
+        if patch_shape is None:
+            raise ValueError("Dense needs patch_shape")
+        net = Dense(num_classes=num_classes, in_channels=in_channels,
+                    patch_shape=tuple(patch_shape), num_levels=num_levels,
+                    dropout_rate=dropout_rate,
+                    activation=activation or "relu", norm=norm, dtype=dtype,
+                    generator=generator)
+        return net.to(device)
     kw = dict(num_classes=num_classes, in_channels=in_channels,
               num_channels=num_channels, num_levels=num_levels,
               num_convolutions=tuple(num_convolutions),
               bottom_convolutions=bottom_convolutions,
               dropout_rate=dropout_rate, activation=activation or "prelu",
               norm=norm, dtype=dtype, generator=generator,
-              dropout_impl=dropout_impl, dw_impl=dw_impl)
+              dropout_impl=dropout_impl, dw_impl=dw_impl,
+              conv_impl=conv_impl, packed_target_lanes=packed_target_lanes,
+              legacy_double_norm=legacy_double_norm or name == "VNetLegacy")
     if name == "AttentionVNet":
         net = AttentionGatedVNet(attention_channels=attention_channels, **kw)
     else:
@@ -72,5 +118,6 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
     return net.to(device)
 
 
-__all__ = ["VNet", "AttentionGatedVNet", "AttentionModule", "OutputModule",
-           "attention_distance_loss", "build_network", "eval_apply"]
+__all__ = ["VNet", "UNet", "Dense", "AttentionGatedVNet", "AttentionModule",
+           "OutputModule", "NETWORKS", "attention_distance_loss",
+           "build_network", "eval_apply"]

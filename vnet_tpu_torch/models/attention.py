@@ -125,7 +125,10 @@ class OutputModule(AttentionModule):
 
 
 class AttentionGatedVNet(nn.Module):
-    """V-Net backbone + attention gate + output refinement."""
+    """V-Net backbone + attention gate + output refinement. ``conv_impl``,
+    ``packed_target_lanes``, ``legacy_double_norm`` and ``dw_impl`` go to
+    the backbone (``vnet_tpu/models/attention.py:174-190``); the heads'
+    convolutions stay direct, as JAX's ``nn.Conv`` heads are."""
 
     def __init__(self, num_classes: int, in_channels: int = 1,
                  num_channels: int = 16, num_levels: int = 4,
@@ -134,7 +137,9 @@ class AttentionGatedVNet(nn.Module):
                  dropout_rate: float = 0.01, activation: str = "prelu",
                  norm: str = "batch", dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
-                 dropout_impl: str = "xla", dw_impl: str = "xla"):
+                 dropout_impl: str = "xla", dw_impl: str = "xla",
+                 conv_impl: str = "direct", packed_target_lanes: int = 0,
+                 legacy_double_norm: bool = False):
         super().__init__()
         self.norm = norm
         self.vnet = VNet(num_classes=num_classes, in_channels=in_channels,
@@ -143,7 +148,10 @@ class AttentionGatedVNet(nn.Module):
                          bottom_convolutions=bottom_convolutions,
                          dropout_rate=dropout_rate, activation=activation,
                          norm=norm, dtype=dtype, generator=generator,
-                         dropout_impl=dropout_impl, dw_impl=dw_impl)
+                         dropout_impl=dropout_impl, dw_impl=dw_impl,
+                         conv_impl=conv_impl,
+                         packed_target_lanes=packed_target_lanes,
+                         legacy_double_norm=legacy_double_norm)
         head = dict(num_channels=attention_channels, norm=norm,
                     dropout_rate=dropout_rate, dtype=dtype,
                     generator=generator, dropout_impl=dropout_impl)

@@ -1,4 +1,4 @@
-"""Layer primitives of the V-Net, 2D or 3D, direct convolutions.
+"""Layer primitives of the model zoo, 2D or 3D, direct or packed.
 
 Counterpart of ``vnet_tpu/models/layers.py``, rank-generic as it is: the
 spatial rank is the kernel's length (convolutions) or ``x.ndim - 2``
@@ -25,6 +25,16 @@ Training mode: batch norms update their running averages in place under
 ``no_grad``; ``Dropout`` runs ``ops/dropout.py`` (the CUDA kernel on the
 card) and a 3D ``SpatialConv(dw_impl="pallas")`` takes its weight gradient
 from ``ops/dw_conv.py``.
+
+Packed domain (``ops/s2d.py``): a tensor of ``groups * C`` channels,
+offset-major. Whether a layer runs packed depends on the input's extents,
+which JAX decides when it traces; here the owning network decides it at
+each forward and passes it as forward arguments (``groups`` of ``Norm``
+and ``Activation``; ``packed``, ``packed_factors`` (``None``: every axis
+packed), ``packed_input_splits``, ``packed_down``, ``packed_down_keep`` of
+``SpatialConv``; ``packed_output`` of the up and down convolutions). The
+parameters do not depend on it: the same weights serve both modes, as
+JAX's checkpoints interchange between them.
 """
 
 from __future__ import annotations
@@ -36,8 +46,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv_vjp import conv_custom_dw
+from ..ops.conv_vjp import same_pads as stride1_pads
 from ..ops.dropout import dropout as dropout_op
 from ..ops.dw_conv import conv3d_dw
+from ..ops.s2d import (norm_factors, packed_conv, packed_down_conv,
+                       prod_factors, s2d_conv, s2d_down_conv, s2d_up_conv)
 
 NORM_KINDS = ("batch", "batch_stats", "group", "instance", "none")
 ACTIVATIONS = ("relu", "prelu", "lrelu")
@@ -45,6 +59,7 @@ ACTIVATIONS = ("relu", "prelu", "lrelu")
 _EPS = 1e-3
 _MOMENTUM = 0.99
 DW_IMPLS = ("xla", "custom", "pallas")
+CONV_IMPLS = ("direct", "s2d", "auto")
 _CONV = {2: F.conv2d, 3: F.conv3d}  # by spatial rank
 _CONV_TRANSPOSE = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
@@ -71,14 +86,19 @@ def same_pads(size: int, kernel: int, stride: int) -> tuple:
 
 class PReLU(nn.Module):
     """Per-channel parametric ReLU, slope initialised to 0.1; computed as
-    ``max(x, 0) + alpha * min(x, 0)`` in the compute dtype, as JAX does."""
+    ``max(x, 0) + alpha * min(x, 0)`` in the compute dtype, as JAX does.
+    ``groups > 1``: a packed input, the slope tiled over the offset
+    groups."""
 
     def __init__(self, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.full((features,), 0.1))
 
-    def forward(self, x):
-        alpha = _channel_view(self.weight.to(x.dtype), x.ndim)
+    def forward(self, x, groups: int = 1):
+        alpha = self.weight.to(x.dtype)
+        if groups > 1:
+            alpha = alpha.repeat(groups)
+        alpha = _channel_view(alpha, x.ndim)
         return torch.clamp_min(x, 0) + alpha * torch.clamp_max(x, 0)
 
 
@@ -93,12 +113,12 @@ class Activation(nn.Module):
         if kind == "prelu":
             self.prelu = PReLU(features)
 
-    def forward(self, x):
+    def forward(self, x, groups: int = 1):
         if self.kind == "relu":
             return F.relu(x)
         if self.kind == "lrelu":
             return F.leaky_relu(x, 0.01)  # flax nn.leaky_relu default
-        return self.prelu(x)
+        return self.prelu(x, groups)
 
 
 class BatchNorm(nn.Module):
@@ -107,6 +127,12 @@ class BatchNorm(nn.Module):
     ``use_running_average`` selects the stored statistics; otherwise the
     statistics of the batch itself are used and, in training mode, folded
     into the running averages (:meth:`update_running`).
+
+    ``groups > 1``: JAX's ``PackedBatchNorm`` — the input holds ``groups *
+    C`` packed channels and the statistics reduce over batch, packed
+    spatial and offset groups, which equals the unpacked per-channel
+    statistics; the variance is ``E[x^2] - E[x]^2`` unclipped, as there.
+    Parameters and buffers stay ``(C,)``.
     """
 
     def __init__(self, features: int):
@@ -116,7 +142,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x, use_running_average: bool):
+    def forward(self, x, use_running_average: bool, groups: int = 1):
+        if groups > 1:
+            return self._packed(x, use_running_average, groups)
         xf = x.float()
         if use_running_average:
             mean, var = self.running_mean, self.running_var
@@ -130,6 +158,23 @@ class BatchNorm(nn.Module):
         y = ((xf - _channel_view(mean, x.ndim)) * _channel_view(mul, x.ndim)
              + _channel_view(self.bias, x.ndim))
         return y.to(x.dtype)
+
+    def _packed(self, x, use_running_average: bool, groups: int):
+        c = x.shape[1] // groups
+        # (B, G, C, *spatial): a view of the channels-last storage
+        xf = x.reshape((x.shape[0], groups, c) + tuple(x.shape[2:])).float()
+        if use_running_average:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = (0, 1) + tuple(range(3, xf.ndim))
+            mean = xf.mean(axes)
+            var = xf.square().mean(axes) - mean.square()
+            if self.training:
+                self.update_running(mean, var)
+        view = (1, 1, c) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + _EPS) * self.weight
+        y = (xf - mean.view(view)) * mul.view(view) + self.bias.view(view)
+        return y.to(x.dtype).reshape(x.shape)
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -173,6 +218,9 @@ class Norm(nn.Module):
     evaluates with ``train_phase=True``). ``group``: up to 8 groups.
     ``instance``: per-sample spatial statistics, then a per-channel affine
     held on this module itself (as in flax). ``none``: identity.
+    ``groups > 1``: a packed input, batch kinds only. A ``(B, F)`` input
+    (the Dense network) has no spatial axes: batch kinds reduce over the
+    batch, ``instance`` over nothing, as ``jnp.mean(axis=())`` does.
     """
 
     def __init__(self, kind: str, features: int):
@@ -191,17 +239,24 @@ class Norm(nn.Module):
             self.weight = nn.Parameter(torch.ones(features))
             self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x):
+    def forward(self, x, groups: int = 1):
         if self.kind == "none":
             return x
+        if groups > 1 and self.kind not in ("batch", "batch_stats"):
+            raise ValueError(f"packed norm only supports batch kinds, got "
+                             f"{self.kind}")
         if self.kind in ("batch", "batch_stats"):
-            return self.bn(x, self.kind == "batch" and not self.training)
+            return self.bn(x, self.kind == "batch" and not self.training,
+                           groups)
         if self.kind == "group":
             return self.gn(x)
         xf = x.float()
         axes = tuple(range(2, x.ndim))
-        mean = xf.mean(axes, keepdim=True)
-        var = xf.square().mean(axes, keepdim=True) - mean.square()
+        if axes:
+            mean = xf.mean(axes, keepdim=True)
+            var = xf.square().mean(axes, keepdim=True) - mean.square()
+        else:  # no spatial axes: each value is its own mean
+            mean, var = xf, torch.zeros_like(xf)
         y = ((xf - mean) * torch.rsqrt(var + _EPS)).to(x.dtype)
         return (y * _channel_view(self.weight.to(x.dtype), x.ndim)
                 + _channel_view(self.bias.to(x.dtype), x.ndim))
@@ -247,31 +302,55 @@ class TiledInputBatchNorm(nn.Module):
 
 class SpatialConv(nn.Module):
     """2D or 3D convolution (``len(kernel_size)``) with XLA ``"SAME"``
-    padding, direct mode only.
+    padding, by the implementation of JAX's ``SpatialConv``.
 
     ``weight`` is ``(out, in, *kernel_size)``; Xavier-uniform init, zero
-    bias; ``strides`` default to 1. ``dw_impl`` selects the weight gradient
-    of stride-1 convolutions: ``"pallas"`` takes it from ``ops/dw_conv.py``
-    (the CUDA kernel on the card) at rank 3, with the bias added outside
-    that autograd Function as JAX adds it; ``"xla"`` and ``"custom"`` (the
-    same math in the JAX package, ``ops/conv_vjp.py``) keep torch autograd
-    of ``F.conv3d`` / ``F.conv2d``. The dW kernel is rank-3 only, as JAX's
-    is: at rank 2 ``"pallas"`` keeps autograd of ``F.conv2d``, exactly as
-    JAX's ``conv_pallas_dw`` takes its XLA weight gradient for an operand
-    ``dw_conv_supported`` refuses (``vnet_tpu/ops/pallas/dw_conv.py``). That
-    is a static routing by rank that matches the reference, not a fallback.
+    bias; ``strides`` default to 1.
+
+    ``impl`` (fixed when built): ``"direct"`` — the convolution itself;
+    ``"s2d"`` — the space-to-depth rewrite (``ops/s2d.py``), raising where
+    it does not apply; ``"auto"`` — the rewrite where it applies (``can_s2d``:
+    a cubic odd kernel of at least 5, stride 1, even extents, ``2^r *
+    max(in, out) <= 1024``), and for a stride-2 2^r convolution on even
+    extents (``can_down``) the matrix product of ``s2d_down_conv`` in both
+    modes, as ``vnet_tpu/models/layers.py:392-420`` decides.
+
+    Forward arguments (decided by the owning network per input shape):
+    ``packed`` — input and output in the packed domain of
+    ``packed_factors`` (``None``: every axis), the weight packed at apply
+    time, a 1^r kernel a product shared by the offset groups;
+    ``packed_input_splits`` — the packed input is a flat concat of
+    separately packed tensors; ``packed_down`` — a stride-2 2^r convolution
+    of a packed input, one matrix product, its output unpacked or, with
+    ``packed_down_keep``, in the next level's packed layout.
+
+    ``dw_impl`` selects the weight gradient of stride-1 convolutions (direct
+    and packed): ``"pallas"`` takes it from ``ops/dw_conv.py`` (the CUDA
+    kernel on the card) at rank 3, with the bias added outside that
+    autograd Function as JAX adds it; ``"custom"`` from
+    ``ops/conv_vjp.py::conv_custom_dw``; ``"xla"`` from torch autograd. The
+    dW kernel is rank-3 only, as JAX's is: at rank 2 ``"pallas"`` keeps
+    autograd's, exactly as JAX's ``conv_pallas_dw`` takes its XLA weight
+    gradient for an operand ``dw_conv_supported`` refuses
+    (``vnet_tpu/ops/pallas/dw_conv.py``). That is a static routing by rank
+    that matches the reference, not a fallback. The per-site ``s2d``
+    rewrite keeps autograd's weight gradient, as JAX's ``s2d_conv`` does.
     """
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int],
                  strides: Optional[Sequence[int]] = None,
                  generator: Optional[torch.Generator] = None,
-                 dw_impl: str = "xla"):
+                 dw_impl: str = "xla", impl: str = "direct"):
         super().__init__()
         if dw_impl not in DW_IMPLS:
             raise ValueError(f"Unknown dw_impl {dw_impl!r}; expected one of "
                              f"{DW_IMPLS}")
+        if impl not in CONV_IMPLS:
+            raise ValueError(f"Unknown conv impl {impl!r}; expected one of "
+                             f"{CONV_IMPLS}")
         self.dw_impl = dw_impl
+        self.impl = impl
         self.kernel_size = tuple(int(k) for k in kernel_size)
         if len(self.kernel_size) not in _CONV:
             raise ValueError(f"SpatialConv is 2D or 3D, got kernel "
@@ -285,21 +364,67 @@ class SpatialConv(nn.Module):
                          generator)
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x):
-        if (self.dw_impl == "pallas" and len(self.kernel_size) == 3
-                and self.strides == (1, 1, 1)):
-            y = conv3d_dw(x, self.weight.to(x.dtype))
-            return y + _channel_view(self.bias.to(x.dtype), y.ndim)
-        pads = [same_pads(n, k, s) for n, k, s in
-                zip(x.shape[2:], self.kernel_size, self.strides)]
-        if all(lo == hi for lo, hi in pads):
-            padding = tuple(lo for lo, _ in pads)
+    def forward(self, x, packed: bool = False, packed_factors=None,
+                packed_input_splits=None, packed_down: bool = False,
+                packed_down_keep: bool = False):
+        rank = len(self.kernel_size)
+        k = self.kernel_size
+        w = self.weight.to(x.dtype)
+        b = self.bias.to(x.dtype)
+        if packed_down:
+            if k != (2,) * rank or self.strides != (2,) * rank:
+                raise ValueError(f"packed_down needs a stride-2 2^r conv, "
+                                 f"got kernel {k}, strides {self.strides}")
+            y = packed_down_conv(x, w, keep_packed=packed_down_keep,
+                                 factors=packed_factors)
+            b = b.repeat(2 ** rank) if packed_down_keep else b
+            return y + _channel_view(b, y.ndim)
+        if packed:
+            factors = norm_factors(packed_factors, rank)
+            groups = prod_factors(factors)
+            if k == (1,) * rank:
+                # the packed pointwise convolution: one weight shared by
+                # every offset group, a grouped matrix product
+                cout, cin = w.shape[:2]
+                xs = x.movedim(1, -1)
+                xg = xs.reshape(xs.shape[:-1] + (groups, cin))
+                y = torch.matmul(xg, w.reshape(cout, cin).t())
+                y = y.reshape(xs.shape[:-1] + (groups * cout,)).movedim(-1, 1)
+            else:
+                y = packed_conv(x, w, input_splits=packed_input_splits,
+                                factors=factors, dw_impl=self.dw_impl)
+            return y + _channel_view(b.repeat(groups), y.ndim)
+
+        stride1 = self.strides == (1,) * rank
+        even = all(n % 2 == 0 for n in x.shape[2:])
+        uniform = len(set(k)) == 1
+        can_s2d = (uniform and k[0] % 2 == 1 and k[0] >= 5 and stride1
+                   and even and 2 ** rank * max(w.shape[:2]) <= 1024)
+        can_down = (uniform and k[0] == 2 and self.strides == (2,) * rank
+                    and even)
+        use_s2d = self.impl == "s2d" or (self.impl == "auto" and can_s2d)
+        if use_s2d and not can_s2d:
+            raise ValueError(f"s2d conv not applicable: kernel={k}, "
+                             f"strides={self.strides}, "
+                             f"spatial={tuple(x.shape[2:])}")
+        if self.impl != "direct" and can_down:
+            y = s2d_down_conv(x, w)
+        elif use_s2d:
+            y = s2d_conv(x, w)
+        elif self.dw_impl == "pallas" and rank == 3 and stride1:
+            y = conv3d_dw(x, w)
+        elif self.dw_impl == "custom" and stride1:
+            y = conv_custom_dw(x, w, stride1_pads(k))
         else:
-            x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
-            padding = 0
-        conv = _CONV[len(self.kernel_size)]
-        return conv(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                    self.strides, padding)
+            pads = [same_pads(n, kk, s) for n, kk, s in
+                    zip(x.shape[2:], k, self.strides)]
+            if all(lo == hi for lo, hi in pads):
+                padding = tuple(lo for lo, _ in pads)
+            else:
+                x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+                padding = 0
+            return _CONV[rank](x, w, b, self.strides, padding)
+        return y + _channel_view(b, y.ndim)
 
 
 class SpatialConvTranspose(nn.Module):
@@ -310,12 +435,22 @@ class SpatialConvTranspose(nn.Module):
     (or ``2d``) takes it. ``lax.conv_transpose`` does not flip the kernel
     and PyTorch's transpose convolution is the adjoint of a convolution, so
     the JAX kernel maps here spatially flipped (``convert.py``).
+
+    ``impl`` ``"s2d"`` or ``"auto"``: the stride-2 2^r case is a matrix
+    product and a depth-to-space (``ops/s2d.py::s2d_up_conv``).
+    ``forward(x, packed_output=True, packed_factors=f)`` returns that
+    product in the packed domain of ``f`` (``None``: every axis) instead.
     """
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int], strides: Sequence[int],
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 impl: str = "direct"):
         super().__init__()
+        if impl not in CONV_IMPLS:
+            raise ValueError(f"Unknown conv impl {impl!r}; expected one of "
+                             f"{CONV_IMPLS}")
+        self.impl = impl
         self.kernel_size = tuple(int(k) for k in kernel_size)
         self.strides = tuple(int(s) for s in strides)
         if len(self.kernel_size) not in _CONV_TRANSPOSE:
@@ -332,10 +467,22 @@ class SpatialConvTranspose(nn.Module):
                          generator)
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x):
-        conv = _CONV_TRANSPOSE[len(self.kernel_size)]
-        return conv(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                    self.strides)
+    def forward(self, x, packed_output: bool = False, packed_factors=None):
+        rank = len(self.kernel_size)
+        w = self.weight.to(x.dtype)
+        b = self.bias.to(x.dtype)
+        can_up = self.kernel_size == (2,) * rank
+        if packed_output:
+            if not can_up:
+                raise ValueError("packed_output needs a stride-2 2^r kernel")
+            y = s2d_up_conv(x, w, keep_packed=True,
+                            out_factors=packed_factors)
+            groups = prod_factors(norm_factors(packed_factors, rank))
+            return y + _channel_view(b.repeat(groups), y.ndim)
+        if self.impl != "direct" and can_up:
+            y = s2d_up_conv(x, w)
+            return y + _channel_view(b, y.ndim)
+        return _CONV_TRANSPOSE[rank](x, w, b, self.strides)
 
 
 class Dropout(nn.Module):
@@ -370,37 +517,69 @@ class Dropout(nn.Module):
 class DownConv(nn.Module):
     """Stride-``factor`` convolution doubling channels, then norm and
     activation (children ``conv``, ``norm``, ``act``), over ``rank``
-    spatial axes."""
+    spatial axes; ``impl`` is the convolution's (``SpatialConv``).
+
+    ``forward(x, packed_input=True, packed_factors=f)``: ``x`` is packed
+    (``f``: its per-axis packing, ``None`` every axis), the convolution one
+    matrix product; ``packed_output`` (full packing only) emits the next
+    level's packed layout, normalised and activated there."""
 
     def __init__(self, channels: int, factor: int = 2, norm: str = "batch",
                  activation: str = "prelu",
-                 generator: Optional[torch.Generator] = None, rank: int = 3):
+                 generator: Optional[torch.Generator] = None, rank: int = 3,
+                 impl: str = "direct"):
         super().__init__()
         out = channels * factor
+        self.factor = factor
         self.conv = SpatialConv(channels, out, (factor,) * rank,
-                                (factor,) * rank, generator=generator)
+                                (factor,) * rank, generator=generator,
+                                impl=impl)
         self.norm = Norm(norm, out)
         self.act = Activation(activation, out)
 
-    def forward(self, x):
-        return self.act(self.norm(self.conv(x)))
+    def forward(self, x, packed_input: bool = False, packed_factors=None,
+                packed_output: bool = False):
+        if packed_output and not packed_input:
+            raise ValueError("packed_output needs packed_input")
+        if not packed_input:
+            return self.act(self.norm(self.conv(x)))
+        if self.factor != 2:
+            raise ValueError("a packed input needs factor 2")
+        x = self.conv(x, packed_down=True, packed_down_keep=packed_output,
+                      packed_factors=packed_factors)
+        groups = 2 ** (x.ndim - 2) if packed_output else 1
+        return self.act(self.norm(x, groups), groups)
 
 
 class UpConv(nn.Module):
     """Stride-``factor`` transpose convolution halving channels, then norm
     and activation (children ``deconv``, ``norm``, ``act``), over ``rank``
-    spatial axes."""
+    spatial axes; ``impl`` is the transpose convolution's.
+
+    ``forward(x, packed_output=True, packed_factors=f)`` stays in the packed
+    domain of the output grid (``f``: which axes stay packed, ``None``
+    every axis), norm and activation offset-aware; the decoder block that
+    consumes it skips its own packing."""
 
     def __init__(self, channels: int, factor: int = 2, norm: str = "batch",
                  activation: str = "prelu",
-                 generator: Optional[torch.Generator] = None, rank: int = 3):
+                 generator: Optional[torch.Generator] = None, rank: int = 3,
+                 impl: str = "direct"):
         super().__init__()
         out = channels // factor
+        self.factor = factor
         self.deconv = SpatialConvTranspose(channels, out, (factor,) * rank,
                                            (factor,) * rank,
-                                           generator=generator)
+                                           generator=generator, impl=impl)
         self.norm = Norm(norm, out)
         self.act = Activation(activation, out)
 
-    def forward(self, x):
-        return self.act(self.norm(self.deconv(x)))
+    def forward(self, x, packed_output: bool = False, packed_factors=None):
+        if not packed_output:
+            return self.act(self.norm(self.deconv(x)))
+        if self.factor != 2:
+            raise ValueError("a packed output needs factor 2")
+        rank = x.ndim - 2
+        groups = prod_factors(norm_factors(packed_factors, rank))
+        x = self.deconv(x, packed_output=True, packed_factors=packed_factors)
+        return self.act(self.norm(x, groups), groups)

@@ -5,7 +5,8 @@ steps, timed on the card.
         [--compare SRC ...] [--steps] [--list]
 
 The shapes come from the module trees: a forward pre-hook on every
-``Dropout`` of the network that the step's config builds, run once in eval
+``Dropout`` of the network that the step's config builds (packed, as the
+trainer builds it: the packed levels' dropout inputs hold 128 channels), run once in eval
 mode on the ``meta`` device (no memory, no arithmetic) at the step's patch;
 the batch is the step's. A training step launches the kernel twice per
 layer, forward and backward (the backward regenerates the mask):
@@ -102,7 +103,8 @@ def step_network(step: str, device="meta"):
         dropout_rate=n.dropout, num_channels=n.num_channel,
         num_levels=n.num_levels, num_convolutions=n.num_convolutions,
         bottom_convolutions=n.bottom_convolutions, norm=n.norm,
-        dtype=torch.bfloat16, device=device, spatial_rank=t.dimension)
+        packed_target_lanes=n.packed_target_lanes, dtype=torch.bfloat16,
+        device=device, spatial_rank=t.dimension)
     return net, tuple(patch or t.patch_shape), batch, t.input_channels
 
 

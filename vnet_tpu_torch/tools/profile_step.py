@@ -4,6 +4,7 @@
     python -m vnet_tpu_torch.tools.profile_step --attention --batch 8 \
         --impl xla
     python -m vnet_tpu_torch.tools.profile_step --config2d --impl xla
+    python -m vnet_tpu_torch.tools.profile_step --conv_impl direct
 
 Builds ``bench.py``'s flagship training step (the 3D V-Net of
 ``configs/config.json`` at full width, bf16, 64^3 patches, weighted
@@ -20,8 +21,12 @@ says otherwise), times
 busy and idle share of the step, and the peak device memory. Device busy
 time is the union of the intervals of the trace's device events (kernels,
 copies, memsets); the span runs from the step's first host event to its
-last device event. ``--impl`` sets ``DropoutImpl`` and ``DwImpl`` together.
-Needs a CUDA card.
+last device event. ``--impl`` sets ``DropoutImpl`` and ``DwImpl`` together;
+``--conv_impl`` builds the packed network (the default, as the trainer
+builds it) or the direct one. The profiled step's ``aten::copy_`` calls are
+counted (layout copies among them). ``--find FRAGMENT`` names the operators
+whose device kernels hold that fragment, with their input shapes (which
+layer launched them), their launches and device ms. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -45,27 +50,32 @@ NUM_CLASSES = 3
 PATCH_2D = (256, 256)  # configs/config_2d.json
 BATCH_2D = 32
 
-# kernel-name fragments -> group, first match wins
+# kernel-name fragments -> group, first match wins: cuDNN's convolution
+# kernels name their pass (fprop, dgrad, wgrad) or "conv"; the other GEMM
+# kernels are the matrix products (the packed network's down and up
+# convolutions, its 1^r output conv, and the packed kernels' dx)
 GROUPS = (
     ("dw_mma_kernel", "dW kernel"), ("dw_partial_kernel", "dW kernel"),
     ("dw_reduce_kernel", "dW kernel"),
     ("dropout_kernel", "dropout kernel"),
     ("multi_tensor", "optimizer"), ("adam", "optimizer"),
-    ("conv", "cuDNN convolution"), ("xmma", "cuDNN convolution"),
-    ("cutlass", "cuDNN convolution"), ("sm90", "cuDNN convolution"),
-    ("implicit", "cuDNN convolution"), ("wgrad", "cuDNN convolution"),
-    ("dgrad", "cuDNN convolution"),
+    ("fprop", "cuDNN convolution"), ("dgrad", "cuDNN convolution"),
+    ("wgrad", "cuDNN convolution"), ("conv", "cuDNN convolution"),
+    ("implicit", "cuDNN convolution"),
+    ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
+    ("cutlass", "matmul"), ("sm90", "matmul"),
     ("reduce", "reductions"), ("Memcpy", "copies"), ("Memset", "copies"),
 )
+CONV_IMPLS = ("packed", "direct")
 
 
 def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
-                  patch=PATCH):
+                  patch=PATCH, conv_impl: str = "packed"):
     """``(state, step_fn, images, labels)`` of the flagship workload."""
     net = build_network("VNet", num_classes=NUM_CLASSES, dropout_rate=0.01,
                         norm="batch", dtype=torch.bfloat16, device=device,
                         generator=torch.Generator().manual_seed(seed),
-                        dropout_impl=impl, dw_impl=impl)
+                        dropout_impl=impl, dw_impl=impl, conv_impl=conv_impl)
     opt, schedule = build_optimizer(
         OptimizerConfig(name="Adam", initial_learning_rate=1e-2,
                         decay_factor=0.99, decay_steps=100),
@@ -82,14 +92,14 @@ def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
 
 
 def attention_step(impl: str, batch: int, device="cuda", seed: int = 0,
-                   patch=PATCH):
+                   patch=PATCH, conv_impl: str = "packed"):
     """``(state, step_fn, images, labels)`` of the attention-gated step;
     ``step_fn`` carries the step's distance maps."""
     net = build_network("AttentionVNet", num_classes=2, in_channels=2,
                         dropout_rate=0.01, norm="batch", dtype=torch.bfloat16,
                         device=device,
                         generator=torch.Generator().manual_seed(seed),
-                        dropout_impl=impl, dw_impl=impl)
+                        dropout_impl=impl, dw_impl=impl, conv_impl=conv_impl)
     opt, schedule = build_optimizer(
         OptimizerConfig(name="Adam", initial_learning_rate=1e-2,
                         decay_factor=0.99, decay_steps=100),
@@ -113,7 +123,7 @@ def attention_step(impl: str, batch: int, device="cuda", seed: int = 0,
 
 
 def config2d_step(impl: str, batch: int, device="cuda", seed: int = 0,
-                  patch=PATCH_2D):
+                  patch=PATCH_2D, conv_impl: str = "packed"):
     """``(state, step_fn, images, labels)`` of ``configs/config_2d.json``'s
     step: the 2D V-Net at full width (16 channels, 4 levels, convolutions
     (1, 2, 3, 3), bottom 3, PReLU, batch norm, dropout 0.01), bf16, 256^2
@@ -121,7 +131,8 @@ def config2d_step(impl: str, batch: int, device="cuda", seed: int = 0,
     net = build_network("VNet", num_classes=2, dropout_rate=0.01,
                         norm="batch", dtype=torch.bfloat16, device=device,
                         generator=torch.Generator().manual_seed(seed),
-                        dropout_impl=impl, dw_impl=impl, spatial_rank=2)
+                        dropout_impl=impl, dw_impl=impl, spatial_rank=2,
+                        conv_impl=conv_impl)
     opt, schedule = build_optimizer(
         OptimizerConfig(name="Adam", initial_learning_rate=1e-2,
                         decay_factor=0.99, decay_steps=100),
@@ -185,6 +196,20 @@ def breakdown(prof):
     return span / 1e3, busy / 1e3, dict(groups), dict(kernels)
 
 
+def find_ops(prof, fragment: str):
+    """``{(operator, input shapes, kernel): [ms, launches]}`` of the device
+    kernels whose name holds ``fragment``, by the operator that launched
+    them."""
+    found = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        for k in e.kernels:
+            if fragment.lower() in k.name.lower():
+                key = (e.name, str(e.input_shapes), k.name)
+                found[key][0] += k.duration / 1e3
+                found[key][1] += 1
+    return dict(found)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m vnet_tpu_torch.tools."
                                           "profile_step")
@@ -193,6 +218,11 @@ def main(argv=None):
     parser.add_argument("--impl", default="pallas",
                         choices=["pallas", "bits8", "xla"])
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--conv_impl", default="packed", choices=CONV_IMPLS,
+                        help="the network's convolutions (the trainer's "
+                             "default: packed)")
+    parser.add_argument("--find", default=None, metavar="FRAGMENT",
+                        help="name the operators whose kernels hold it")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--attention", action="store_true",
                       help="the attention-gated step instead")
@@ -213,17 +243,21 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    state, step, images, labels = build(args.impl, args.batch)
+    state, step, images, labels = build(args.impl, args.batch,
+                                        conv_impl=args.conv_impl)
     torch.cuda.reset_peak_memory_stats()
     times, losses = timed_steps(state, step, images, labels, 1 + args.steps)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts,
+                                record_shapes=bool(args.find)) as prof:
         step(state, images, labels, dropout_seed=state.step)
         torch.cuda.synchronize()
     span, busy, groups, kernels = breakdown(prof)
+    copies = sum(1 for e in prof.events() if e.name == "aten::copy_")
     print(f"card: {smi}")
-    print(f"{what}, impl {args.impl}, batch {args.batch}, {shape} bf16: "
+    print(f"{what}, conv_impl {args.conv_impl}, impl {args.impl}, batch "
+          f"{args.batch}, {shape} bf16: "
           f"step ms "
           f"{[round(t, 1) for t in times]} (first is warm-up), median "
           f"{statistics.median(times[1:]):.1f} ms, "
@@ -232,13 +266,21 @@ def main(argv=None):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
           f"losses {[round(v, 4) for v in losses]}")
     print(f"profiled step: span {span:.2f} ms, device busy {busy:.2f} ms, "
-          f"idle share {1 - busy / span:.3f}")
+          f"idle share {1 - busy / span:.3f}; {copies} aten::copy_ calls")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {name:24s} {ms:10.2f} ms  {ms / busy:6.1%} of busy")
     print("top kernels:")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (ms, count) in top:
         print(f"  {ms:10.2f} ms  x{count:<4d} {name[:110]}")
+    if args.find:
+        found = find_ops(prof, args.find)
+        print(f"operators launching kernels that hold {args.find!r}: "
+              f"{len(found)}")
+        for (op, shapes, kernel), (ms, count) in sorted(
+                found.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {ms:10.2f} ms  x{count:<3d} {op} {shapes} -> "
+                  f"{kernel[:80]}")
 
 
 if __name__ == "__main__":

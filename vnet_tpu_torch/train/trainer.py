@@ -1,6 +1,12 @@
 """Training orchestrator of the port: the train step, the epoch loop,
 checkpoints and logs — counterpart of ``vnet_tpu/train/trainer.py``.
 
+The network is built as the JAX trainer builds it (``build_network``'s
+defaults): packed convolutions with adaptive per-level packing at
+``PackedTargetLanes``, the double norm of ``VNetLegacy``, any name of the
+zoo; ``build_network(..., conv_impl="direct")`` builds the direct one.
+``Remat: true`` is accepted and ignored, with a warning (ROADMAP.md).
+
 One device, eager PyTorch: the step is forward (the network in train mode,
 dropout keyed by the step's seed), loss, ``backward``, optimizer step, in
 place on the network and optimizer that :class:`TrainState` holds. The loop
@@ -225,8 +231,11 @@ class Trainer:
             bottom_convolutions=net_cfg.bottom_convolutions,
             norm=net_cfg.norm, dtype=self.dtype, device=self.device,
             generator=torch.Generator().manual_seed(t.seed),
-            dropout_impl=net_cfg.dropout_impl, dw_impl=net_cfg.dw_impl,
-            spatial_rank=t.dimension)
+            packed_target_lanes=net_cfg.packed_target_lanes,
+            dropout_impl=net_cfg.dropout_impl, remat=net_cfg.remat,
+            legacy_double_norm=net_cfg.name == "VNetLegacy",
+            dw_impl=net_cfg.dw_impl, spatial_rank=t.dimension,
+            patch_shape=t.patch_shape)
         self.optimizer, self.lr_schedule = build_optimizer(
             t.optimizer, self.network.parameters())
         self._train_step_fn = make_train_step(
@@ -360,8 +369,7 @@ class Trainer:
     def _write_network_sidecar(self, ckpt_dir: str) -> None:
         """``network_config.json`` beside the checkpoints: the architecture
         travels with the weights, with the JAX trainer's keys and values
-        (``PackedTargetLanes`` and ``Remat``, knobs the port lacks, as the
-        config gives them)."""
+        (``Remat``, a knob the port ignores, as the config gives it)."""
         net = self.t.network
         sidecar = {
             "Networks": {
