@@ -71,8 +71,10 @@ non-zero before the result line:
    CUDA-core kernel), a g that is not channels-last, 1^3, 3^3 and 7^3
    kernels. Phase 1 has checked that the bf16 tensor-core kernels' SASS
    holds HMMA (mma.sync) or HGMMA (wgmma) instructions;
-7. the training main path: ``python -m vnet_tpu_torch -p train``'s
-   ``main`` on ``cuda`` at ``configs/config.json``'s network (16 channels,
+7. the training main path: ``python -m vnet_tpu_torch -p train --devices
+   0``'s ``main`` on ``cuda`` (on one card a process group of one rank
+   under ``nccl``, checked, and no collective called) at
+   ``configs/config.json``'s network (16 channels,
    4 levels, PReLU, batch norm, dropout 0.01, weighted Sorensen, Adam,
    bf16) with patch 64^3, ``DropoutImpl``/``DwImpl`` ``pallas``, batch 4,
    4 steps, on 8 synthetic 96x96x80 cases; the trainer builds the packed
@@ -168,6 +170,29 @@ non-zero before the result line:
    the case's shape; ``VNetLegacy`` with the kernels (42 dropout and 21 dW
    launches a step), ``UNet`` (11 dropout layers) and ``Dense`` (4) with
    the ``xla`` flavour of the dropout kernel, twice a layer a step;
+20. (run after phase 19) data parallelism, two ``gloo`` ranks sharing the
+   card (``parallel.launch(..., backend="gloo", device="cuda:0")``, one
+   spawned process each) against one process, (a) and (b) by
+   ``tools/dp_bench.py``'s functions: (a) the full-width packed flagship
+   network's training step in float32 with TF32 off, global batch 4 at
+   64^3, ``pallas`` dropout 0.01 through the kernel and the dW kernel:
+   loss, every gradient and running averages within ``dp_bench.RTOL`` of
+   the largest of their kind, the parameters after Adam within it beyond
+   Adam's first-step amplification of the gradients' difference (a
+   gradient near 0 moves its parameter by up to lr whatever its sign;
+   ``dp_bench.LR``'s comment), the two ranks' parameters and averages
+   bitwise equal, every dropout
+   layer's mask joined over the ranks bitwise the single process's, 42
+   dropout and 21 dW launches a rank; (b) the bf16 flagship step at global
+   batch 96, 48 rows a rank: median step ms, each rank's peak memory and
+   kernel launches a step (a functional reading: both ranks share one
+   card); (d) one case of ``configs/config_eval_gaussian.json`` through
+   ``Evaluator`` with the patch grid sharded over the ranks against one
+   process: probabilities within ``DP_PROB_ATOL``, labels equal wherever
+   the top two probabilities differ by more than ``DP_LABEL_GAP``, the
+   blend kernel launched on each rank and every launch bitwise the plain
+   slice-adds. (c), ``--devices 0`` under ``nccl`` at world size 1, is
+   phase 7;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -255,6 +280,14 @@ CASE_2D = (320, 320, 48)  # training cases of phase 15
 PATCH_2D = (256, 256)
 BATCH_2D = 32  # config_2d.json's BatchSize
 EVAL_STRIDE_2D = (256, 256)  # config_2d.json's evaluation Stride
+# phase 20: two gloo ranks on the one card against one process; (a) and
+# (b) and their tolerances are tools/dp_bench.py's
+DP_RANKS = 2
+DP_TIMEOUT = 420.0
+# (d): the same batches through the same kernels, the accumulators summed
+# across ranks in another order than one process adds them
+DP_PROB_ATOL = 1e-5
+DP_LABEL_GAP = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -671,10 +704,12 @@ def phase_dropout_times():
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=900)
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-15:]
     if proc.returncode != 0:
-        for line in (proc.stdout + proc.stderr).strip().splitlines()[-15:]:
+        for line in tail:
             say(f"[17]   {line}")
-    check(proc.returncode == 0, "dropout_bench failed")
+    # the tail also goes into the error, which stderr keeps
+    check(proc.returncode == 0, "dropout_bench failed:\n" + "\n".join(tail))
     with open(out) as f:
         bench = json.load(f)
     shutil.rmtree(os.path.dirname(out), ignore_errors=True)
@@ -695,8 +730,12 @@ def phase_dropout_times():
             f"device {e['device_ms']:.4f} ms against a bound of "
             f"{e['bound_ms']:.4f} ms, F.dropout {e['library_device_ms']:.4f}"
             f" ms")
+    libs = {tuple(r["shape"]): r["F.dropout"] for r in bench["rows"]}
+    retakes = (sum(r["retakes"] for r in bench["rows"])
+               + sum(lib["retakes"] for lib in libs.values()))
     say(f"[17] dropout_bench in {time.perf_counter() - t0:.1f} s "
-        f"({bench['card']})")
+        f"({bench['card']}); profiler traces taken again after a refusal: "
+        f"{retakes}")
     rows = [dict(shape=r["shape"], impl=r["impl"], device_ms=r["device_ms"],
                  event_ms=r["event_ms"], call_ms=r["call_ms"],
                  host_us=r["host_us"],
@@ -1033,11 +1072,13 @@ def _write_train_config(tmp):
 
 
 def phase_train(tmp):
-    """The training main path through the CLI's ``main``."""
+    """The training main path through the CLI's ``main`` at ``--devices
+    0``: on one card a process group of one rank under ``nccl``."""
     from vnet_tpu_torch.__main__ import main
     from vnet_tpu_torch.config import load_config
     from vnet_tpu_torch.io import MedicalImage, write_image
     from vnet_tpu_torch.tools.dw_bench import dw_shapes
+    from vnet_tpu_torch.tools.profile_step import count_collectives
     from vnet_tpu_torch.train import Trainer, checkpoints
 
     cfg_path, cfg = _write_train_config(tmp)
@@ -1052,13 +1093,25 @@ def phase_train(tmp):
         write_image(MedicalImage(label, (0.75,) * 3),
                     os.path.join(case_dir, "label.nii"))
 
+    groups, restore_groups = _spy_groups()
+    collectives, restore = count_collectives()
     reset_counts()
     t0 = time.perf_counter()
-    state = main(["-p", "train", "--config_json", cfg_path,
-                  "--device", "cuda"])
-    torch.cuda.synchronize()
+    try:
+        state = main(["-p", "train", "--config_json", cfg_path,
+                      "--device", "cuda", "--devices", "0"])
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        restore_groups()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    say(f"[7] --devices 0 on {torch.cuda.device_count()} card(s): process "
+        f"groups (backend, world size) {groups}, collectives called "
+        f"{dict(collectives)}")
+    check(groups == [("nccl", 1)], f"expected one nccl group of one rank, "
+                                   f"got {groups}")
+    check(not collectives, f"world size 1 called collectives {collectives}")
 
     steps = ts["MaxIterations"]
     n_dropout = len(state.network.dropouts)
@@ -1100,6 +1153,21 @@ def phase_train(tmp):
         f"restores into a fresh trainer: weights equal={same}")
     check(same, "restored weights differ from the trained ones")
     return counts
+
+
+def _spy_groups():
+    """Record ``(backend, world size)`` of every process group this process
+    starts; returns ``(records, restore)``."""
+    import torch.distributed as dist
+
+    real, seen = dist.init_process_group, []
+
+    def spy(backend=None, *args, **kwargs):
+        seen.append((backend, kwargs.get("world_size")))
+        return real(backend, *args, **kwargs)
+
+    dist.init_process_group = spy
+    return seen, lambda: setattr(dist, "init_process_group", real)
 
 
 def _flagship_steps(impl, batch, conv_impl):
@@ -1752,7 +1820,8 @@ def phase_cuda_tests():
     if proc.returncode != 0 or passed == 0:
         for line in tail:
             say(f"[12]   {line}")
-    check(proc.returncode == 0, "a cuda-marked test failed")
+    check(proc.returncode == 0,
+          "a cuda-marked test failed:\n" + "\n".join(tail))
     check(passed > 0, "no cuda-marked test passed")
     return passed
 
@@ -1836,6 +1905,119 @@ def phase_attention_step():
     del trainer, state, net
     torch.cuda.empty_cache()
     return counts["dropout"], ms, peak
+
+
+# ----------------------------------------------------------------------
+# phase 20: data parallelism, two gloo ranks on the one card
+# ----------------------------------------------------------------------
+def _dp_evaluate(mesh, cfg_path, case_dir, device):
+    """(d): one case of the evaluation config through ``Evaluator`` (the
+    grid sharded over ``mesh``), every blend launch held bitwise against
+    the plain slice-adds."""
+    from vnet_tpu_torch.config import load_config
+    from vnet_tpu_torch.infer import sliding_window
+    from vnet_tpu_torch.infer.evaluator import Evaluator
+
+    checked = []
+    kernel = sliding_window.blend_accumulate_patches
+    sliding_window.blend_accumulate_patches = _held_blend(checked)
+    try:
+        ev = Evaluator(load_config(cfg_path), device=device, mesh=mesh)
+        reset_counts()
+        label, probs = ev.evaluate_case(case_dir)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        sliding_window.blend_accumulate_patches = kernel
+    return dict(label=np.asarray(label.data),
+                probs=np.stack([np.asarray(p.data) for p in probs]),
+                checked=checked, counts=counts)
+
+
+def _dp_rank(tmp, cfg_path, case_dir):
+    """Phase 20 on one of two ``gloo`` ranks sharing card 0."""
+    from vnet_tpu_torch.parallel import make_mesh
+    from vnet_tpu_torch.tools.dp_bench import rank_results
+
+    mesh = make_mesh(device="cuda:0")
+    out = rank_results(mesh)
+    out["evaluate"] = _dp_evaluate(mesh, cfg_path, case_dir, "cuda:0")
+    torch.save(out, os.path.join(tmp, f"dp_rank{mesh.rank}.pt"))
+
+
+def phase_data_parallel(tmp):
+    """Phase 20: two ``gloo`` ranks on the one card against one process:
+    (a) the float32 flagship step, (b) the bf16 flagship step at batch 96,
+    (d) the sharded evaluation; (c) is phase 7."""
+    from vnet_tpu_torch.io import MedicalImage, write_image
+    from vnet_tpu_torch.models import build_network
+    from vnet_tpu_torch.parallel import launch
+    from vnet_tpu_torch.tools import dp_bench
+    from vnet_tpu_torch.train import checkpoints
+
+    cfg_path, cfg = _write_config(tmp)
+    ts = cfg["TrainingSetting"]
+    case_dir = os.path.join(tmp, "evaluate", "case_0")
+    os.makedirs(case_dir)
+    write_image(MedicalImage(_synthetic_image(np.random.default_rng(SEED)),
+                             (0.75, 0.75, 0.75)),
+                os.path.join(case_dir, "image.nii"))
+    net_cfg = ts["Networks"]
+    net = build_network(
+        "VNet", num_classes=len(ts["SegmentationClasses"]),
+        num_channels=net_cfg["NumChannel"], num_levels=net_cfg["NumLevels"],
+        num_convolutions=net_cfg["NumConvolutions"],
+        bottom_convolutions=net_cfg["BottomConvolutions"],
+        norm=net_cfg["Norm"], device="cpu",
+        generator=torch.Generator().manual_seed(SEED))
+    checkpoints.save(ts["CheckpointDir"], net.state_dict(), 0)
+
+    t0 = time.perf_counter()
+    ref_a = dp_bench.train_check()
+    torch.cuda.empty_cache()
+    ref_d = _dp_evaluate(None, cfg_path, case_dir, "cuda")
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launch(_dp_rank, DP_RANKS, backend="gloo", device="cuda:0",
+           init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+           args=(tmp, cfg_path, case_dir), timeout=DP_TIMEOUT)
+    ranks = [torch.load(os.path.join(tmp, f"dp_rank{r}.pt"),
+                        weights_only=False) for r in range(DP_RANKS)]
+    say(f"[20] one process {ref_s:.1f} s; {DP_RANKS} gloo ranks on card 0 "
+        f"{time.perf_counter() - t0:.1f} s (spawn, import, build included)")
+    check([(r["rank"], r["world"]) for r in ranks] == [(0, 2), (1, 2)],
+          "ranks did not form a group of two")
+
+    # (a) float32, TF32 off: the ranks' step is the single process's;
+    # (b) bf16 at batch 96: a functional reading, both ranks on one card
+    failed = (dp_bench.report_train(ref_a, ranks, "[20a]")
+              + dp_bench.report_timing(ranks, "[20b]"))
+    check(not failed, "; ".join(failed))
+
+    # (d) the sharded evaluation against one process
+    prob_err = max(float(np.abs(r["evaluate"]["probs"] - ref_d["probs"])
+                         .max()) for r in ranks)
+    top2 = np.sort(ref_d["probs"], axis=0)
+    decided = (top2[-1] - top2[-2]) > DP_LABEL_GAP
+    label_diff = max(int(((r["evaluate"]["label"] != ref_d["label"])
+                          & decided).sum()) for r in ranks)
+    held = [r["evaluate"]["checked"] for r in ranks]
+    blends = [r["evaluate"]["counts"]["blend_accumulate"] for r in ranks]
+    say(f"[20d] sharded evaluation of one {SLICE_VOLUME} case at "
+        f"config_eval_gaussian.json over {DP_RANKS} ranks vs one process: "
+        f"max prob diff {prob_err:.2e} (tolerance {DP_PROB_ATOL:g}), labels "
+        f"differ at {label_diff} of {int(decided.sum())} voxels whose top two "
+        f"probabilities differ by more than {DP_LABEL_GAP:g}; blend launches "
+        f"per rank {blends} (one process "
+        f"{ref_d['counts']['blend_accumulate']}), each bitwise "
+        f"the plain slice-adds {[[c[0] for c in h] for h in held]}")
+    check(prob_err <= DP_PROB_ATOL, f"sharded probabilities off {prob_err}")
+    check(label_diff == 0, f"sharded labels differ at {label_diff} voxels")
+    check(all(n >= 1 and len(h) == n and all(c[0] for c in h)
+              for n, h in zip(blends, held)),
+          "a rank did not launch the blend kernel or a launch differs")
+    return ranks
 
 
 def _two_modality_case(rng):
@@ -2320,6 +2502,11 @@ def run():
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_zoo_")
     try:
         phase_zoo(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_dp_")
+    try:
+        phase_data_parallel(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     drop_rows, drop_sums = phase_dropout_times()

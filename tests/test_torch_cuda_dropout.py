@@ -117,3 +117,25 @@ def test_kernel_division_equals_ieee_division_for_every_pattern(
         same = ((out.view(torch.int16) == expect.view(torch.int16))
                 | (out.isnan() & expect.isnan()))
         assert bool(same.all()), (rate, int((~same).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", [0, 135, 4096 + 2, 96 * 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_with_a_counter_base_equals_plain_on_card(base, dtype,
+                                                         cuda_device):
+    """A data-parallel rank's counter base, a multiple of 4 (the 16-byte
+    path) or not (inside a Philox group: the scalar path), for both
+    multiply and divide: bitwise the plain version, which is the global
+    mask's rows (``tests/test_torch_dropout.py``)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = (torch.randn((2, 16, 9, 8, 7), generator=gen, device=cuda_device)
+         * 30.0).to(dtype)
+    for impl in ("pallas", "xla"):
+        params = dropout_params(0.3, impl)
+        out_k = dropout_apply(x, 41, 6, *params, base=base)
+        out_p = dropout_plain(x, 41, 6, *params, base=base)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k, out_p), (impl, base)
+        assert base == 0 or not torch.equal(
+            out_k != 0, dropout_apply(x, 41, 6, *params) != 0)

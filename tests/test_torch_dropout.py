@@ -5,7 +5,9 @@ kernel uses the TPU's generator, flax threefry), so the tests hold the
 port to the JAX formulas for threshold and scale, to the survivors' values
 bit for bit (``xla``: flax's ``inputs / keep_prob``), to the keep
 probability within 5 standard deviations at 2^20 elements or more, to
-``E[out] = x``, and to the mask properties the training step relies on. The
+``E[out] = x``, and to the mask properties the training step relies on
+(with a counter base, a data-parallel rank's mask is its rows of the global
+batch's). The
 plain version runs here; the CUDA kernel is held bitwise against it on the
 card (``tests/test_torch_cuda_dropout.py`` and ``chip_smoke.py``).
 """
@@ -349,3 +351,37 @@ def test_first_product_is_not_always_faithful():
     assert abs(fractions.Fraction(math.ldexp(*q0)) - exact) > ulp
     q, _ = _kernel_quotient(x, _dyadic(d), _dyadic(r))
     assert q == float(torch.tensor(x) / torch.tensor(d))
+
+
+@pytest.mark.parametrize("base", [0, 1, 6, 135, 1 << 33])
+def test_keep_mask_from_a_base_is_the_global_mask_slice(base):
+    full = keep_mask(base % 64 + 300, 11, 4, 2 ** 31,
+                     base=base - base % 64)
+    part = keep_mask(300, 11, 4, 2 ** 31, base=base)
+    np.testing.assert_array_equal(part.numpy(),
+                                  full[base % 64:].numpy())
+
+
+def test_dropout_plain_rank_rows_bitwise():
+    """Rank r's plain dropout with base r * (its elements) is its rows of
+    the global batch's, for each flavour; no two ranks share a mask."""
+    x = torch.randn(4, 3, 5, 3, 3)  # 135 elements a row
+    for impl in ("pallas", "bits8", "xla"):
+        params = dropout_params(0.3, impl)
+        whole = dropout_plain(x, 9, 2, *params)
+        parts = [dropout_plain(x[r:r + 1], 9, 2, *params, base=135 * r)
+                 for r in range(4)]
+        assert torch.equal(torch.cat(parts), whole), impl
+        assert not torch.equal(parts[0] != 0, parts[1] != 0)
+
+
+def test_backward_with_a_base_regenerates_the_forward_mask():
+    """The autograd Function keeps the base with the key: the gradient's
+    mask is the forward's at an odd base."""
+    x = torch.randn(2, 5, 3, 3, 3, requires_grad=True)
+    y = dropout(x, 4, 1, 0.3, "pallas", base=135)
+    (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    assert torch.equal(dx != 0, y != 0)
+    assert torch.equal(y, dropout_plain(x.detach(), 4, 1,
+                                        *dropout_params(0.3, "pallas"),
+                                        base=135))

@@ -106,14 +106,63 @@ def test_bound_and_floor():
 
 def test_span_median_drops_spans_that_cannot_be_right():
     """Truncated spans under the floor are dropped, not averaged in, and
-    the trace is not taken again: too few spans left, or more spans than
-    calls, fail."""
+    the median is never taken again for its value: too few spans left, or
+    more spans than calls, fail (``device_ms`` then retakes the trace)."""
     spans = [0.5] * 30 + [0.6] * 15 + [0.1] * 5
     assert dropout_bench.span_median(spans, 50, 0.4) == (0.5, 5)
     with pytest.raises(SystemExit, match="at least the"):
         dropout_bench.span_median([0.5] * 24 + [0.1] * 26, 50, 0.4)
     with pytest.raises(SystemExit, match="51 device events"):
         dropout_bench.span_median([0.5] * 51, 50, 0.4)
+
+
+class _FakeTrace:
+    """A stand-in for ``torch.profiler.profile`` whose timed traces hold
+    the spans (ms) of ``traces`` in turn; untimed traces (2 calls) too."""
+
+    def __init__(self, traces):
+        self.traces = list(traces)
+        self.taken = 0
+
+    def __call__(self, activities):
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        spans = self.traces[min(self.taken, len(self.traces) - 1)]
+        self.taken += 1
+        cuda = torch.autograd.DeviceType.CUDA
+        return [type("E", (), dict(
+            name="dropout_kernel", device_type=cuda,
+            time_range=type("R", (), dict(start=0.0, end=t * 1e3))))()
+            for t in spans]
+
+
+@pytest.mark.parametrize("refused", [0, 1, 3])
+def test_device_ms_retakes_a_refused_trace(monkeypatch, refused):
+    """A trace that ``span_median`` refuses (records lost or cut short) is
+    taken again, by the same rule, up to TRACE_TRIES traces; the reading
+    comes from the first trace it accepts, and four refusals raise."""
+    bad = [0.1] * 38  # the H100 machine under host load: 38 short spans
+    good = [0.5] * 30 + [0.6] * 20
+    fake = _FakeTrace([bad] * refused + [good])
+    monkeypatch.setattr(torch.profiler, "profile", fake)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    ms, names, dropped, retakes = dropout_bench.device_ms(
+        calls.append, 50, 0.4)
+    assert (ms, names, dropped, retakes) == (0.5, ["dropout_kernel"], 0,
+                                             refused)
+    assert len(calls) == 2 + 50 * (refused + 1)
+    fake = _FakeTrace([bad] * dropout_bench.TRACE_TRIES + [good])
+    monkeypatch.setattr(torch.profiler, "profile", fake)
+    with pytest.raises(SystemExit, match="at least the"):
+        dropout_bench.device_ms(calls.append, 50, 0.4)
 
 
 def test_check_events_fails_where_the_input_fills_the_l2():
@@ -147,3 +196,15 @@ ptxas info    : Used 40 registers, used 0 barriers
     assert dropout_bench.kernel_registers(log) == [
         ("bf16 divide", 46), ("f32 multiply", 36), ("f16 divide", 40)]
     assert dropout_bench.kernel_registers("") == []
+
+
+def test_event_check_reads_checked_shapes_of_the_steps():
+    """``tools/event_check.py`` reads shapes that ``dropout_bench`` lists
+    for a step and holds to its event check (at least CHECK_BYTES)."""
+    from vnet_tpu_torch.tools import event_check
+
+    listed = {s for step in dropout_bench.STEPS
+              for s, _ in dropout_bench.dropout_shapes(step)}
+    for shape in event_check.SHAPES:
+        assert shape in listed
+        assert math.prod(shape) * 2 >= dropout_bench.CHECK_BYTES

@@ -29,7 +29,10 @@ PORT_SOURCES = sorted(str(p.relative_to(ROOT)) for p in
 
 
 def test_port_import_leaves_jax_out():
-    modules = PORT_MODULES + [os.path.basename(p)[:-3] for p in CUDA_TESTS]
+    """The port, the ``cuda``-marked modules and the functions that
+    ``tests/test_torch_parallel.py`` spawns as ranks import no JAX."""
+    modules = PORT_MODULES + [os.path.basename(p)[:-3] for p in CUDA_TESTS
+                              ] + ["torch_parallel_ranks"]
     code = ("import importlib, sys\n"
             "sys.path.insert(0, 'tests')\n"
             f"for m in {modules!r}:\n"
@@ -63,7 +66,8 @@ def test_port_modules_cover_the_package():
     for module in ("data.loader", "data.dataset2d", "data.transforms2d",
                    "io", "ops.fused", "ops.batchnorm",
                    "models.attention", "data.device_aug", "data.distance",
-                   "train.events", "train.images", "profiler"):
+                   "train.events", "train.images", "profiler",
+                   "parallel", "parallel.mesh"):
         assert f"vnet_tpu_torch.{module}" in PORT_MODULES, module
     assert {os.path.basename(p) for p in CUDA_TESTS} == {
         f"test_torch_cuda_{k}.py" for k in ("blend", "fused", "dropout",

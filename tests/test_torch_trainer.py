@@ -354,7 +354,8 @@ def test_cli_attention_trains_and_evaluates(data_dir):
 def test_device_augment_image_log_and_trace(data_dir):
     """``DeviceAugment`` moves the flip and the noise into the step;
     ``ImageLog`` writes PNG images into the events files; ``--profile_dir``
-    writes a Chrome trace; ``--devices 2`` raises."""
+    writes a Chrome trace; ``--devices 2`` raises before it starts a rank,
+    since a batch of 1 does not split over two data-parallel ranks."""
     tmp = data_dir
     cfg = _write_config(tmp, augment=True, testing=True, batch=1,
                         DeviceAugment=True, ImageLog=True)
@@ -380,7 +381,8 @@ def test_device_augment_image_log_and_trace(data_dir):
                               for im in images)
         scalars = {v["tag"] for v in values if "simple_value" in v}
         assert scalars == {s["tag"] for s in _scalars(tmp, tag)}
-    with pytest.raises(NotImplementedError, match="--devices 2"):
+    with pytest.raises(ValueError, match="--devices 2: a batch of 1 does "
+                                         "not split over 2"):
         main(["-p", "train", "--config_json", cfg, "--device", "cpu",
               "--devices", "2"])
 

@@ -4,12 +4,22 @@
     python -m vnet_tpu_torch -p evaluate --config_json CONFIG --device cuda
 
 ``--device`` defaults to ``cuda`` and fails when there is no CUDA device;
-the CPU runs only with ``--device cpu``. ``--gpu`` is accepted and ignored,
-as in the JAX CLI; ``--devices`` takes 0 or 1 (one device; data parallelism
-over more is not ported yet); ``--profile_dir DIR`` writes a
-``torch.profiler`` trace of the phase into DIR (``profiler.TraceCapture``).
-``main`` returns the final ``TrainState`` (train) or the written label paths
-(evaluate).
+the CPU runs only with ``--device cpu``. ``--devices N`` behaves as the
+JAX CLI's: 0 (the default) uses every visible card, and N > 0 sets
+``Mesh.DataParallel``. The phase runs data-parallel in a process group, one
+process a card (``parallel/mesh.py::launch``): training on ``gcd(BatchSize,
+cards)`` ranks for 0, else N; evaluation on every card for 0, else N. Above
+one rank the CLI spawns its local ranks itself; under torchrun (``RANK``,
+``WORLD_SIZE`` set, several nodes) each process joins the group torchrun
+describes. CUDA runs under ``nccl``, the CPU under ``gloo``; a run on one
+card is a group of one rank, which launches no collective; ``--device
+cpu`` with ``--devices`` 0 or 1 runs one process without a group. Asking
+for more cards than torch sees raises: nothing falls back to fewer cards
+or to the CPU. ``--gpu`` is accepted and ignored, as in the JAX CLI;
+``--profile_dir DIR`` writes a ``torch.profiler`` trace of rank 0's phase
+into DIR (``profiler.TraceCapture``). ``main`` returns the final
+``TrainState`` (train) or the written label paths (evaluate) when the
+phase ran in this process, None when it ran in spawned ranks.
 """
 
 from __future__ import annotations
@@ -39,43 +49,93 @@ def get_parser() -> argparse.ArgumentParser:
         help="accepted for reference compatibility; ignored (use --device)")
     parser.add_argument(
         "--devices", dest="devices", type=int, default=0,
-        help="number of devices (0 or 1; more is not ported yet)")
+        help="number of devices for the data-parallel mesh (0 = all)")
     parser.add_argument(
         "--profile_dir", dest="profile_dir", default="",
         help="write a torch.profiler trace of the phase into this directory")
     return parser
 
 
-def main(argv=None):
-    args = get_parser().parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: data parallelism over several "
-            "devices is not ported yet (ROADMAP.md); use 0 or 1")
+def _run(args):
+    """The phase on this rank (or in this process without a group)."""
+    import torch.distributed as dist
+
     from .config import load_config
-    from .device import resolve_device
     from .profiler import TraceCapture
 
     config = load_config(args.config_json)
-    device = resolve_device(args.device)
-    if args.verbose:
-        print(f"device {device}; config {args.config_json}: {config}")
+    if args.devices:
+        config.train.mesh_data_parallel = args.devices
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if args.verbose and rank == 0:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        backend = dist.get_backend() if dist.is_initialized() else "none"
+        print(f"device {args.device}; {world} rank(s), process group "
+              f"{backend}; config {args.config_json}: {config}")
     profiler = None
-    if args.profile_dir:
-        profiler = TraceCapture(args.profile_dir, device)
+    if args.profile_dir and rank == 0:
+        from .device import resolve_device
+
+        profiler = TraceCapture(args.profile_dir, resolve_device(args.device))
         profiler.start()
     try:
         if args.phase == "train":
             from .train import Trainer
 
-            return Trainer(config, device=device).train()
+            return Trainer(config, device=args.device).train()
         from .infer.evaluator import Evaluator
 
-        return Evaluator(config, device=device).evaluate()
+        return Evaluator(config, device=args.device).evaluate()
     finally:
         if profiler is not None:
             profiler.stop()
             print(f"trace written to {profiler.path}")
+
+
+def _ranks(args, batch_size: int) -> int:
+    """Local ranks to launch: ``--devices``, or for 0 every visible card
+    (training: the largest count that divides the batch) and one CPU
+    process."""
+    import torch
+
+    from .device import resolve_device
+    from .parallel.mesh import data_parallel_size
+
+    device = resolve_device(args.device)
+    if args.devices < 0:
+        raise ValueError(f"--devices must be >= 0, got {args.devices}")
+    if device.type != "cuda":
+        return max(args.devices, 1)
+    if device.index is not None:  # one card named
+        if args.devices > 1:
+            raise ValueError(f"--devices {args.devices} puts rank r on card "
+                             f"r: pass --device cuda, not {args.device}")
+        return 1
+    cards = torch.cuda.device_count()
+    if args.devices > cards:
+        raise ValueError(f"--devices {args.devices} needs {args.devices} "
+                         f"cards, torch sees {cards}")
+    if args.devices or args.phase != "train":
+        return args.devices or cards
+    return data_parallel_size(batch_size, 0, cards)
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
+    import torch
+
+    from .config import load_config
+    from .parallel.mesh import launch, under_torchrun
+
+    batch = load_config(args.config_json).train.batch_size
+    ranks = _ranks(args, batch)
+    if args.phase == "train" and batch % ranks:
+        raise ValueError(f"--devices {ranks}: a batch of {batch} does not "
+                         f"split over {ranks} data-parallel ranks")
+    if (torch.device(args.device).type == "cpu" and ranks == 1
+            and not under_torchrun()):
+        return _run(args)
+    return launch(_run, ranks, device=args.device, args=(args,))
 
 
 if __name__ == "__main__":

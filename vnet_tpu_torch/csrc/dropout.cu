@@ -6,8 +6,12 @@
 //
 //     out[i] = (u[i] < thr) ? (divide ? x[i] / factor : x[i] * factor) : 0
 //
-// where u[i] is word (i mod 4) of Philox4x32-10 applied to the counter
-// (i / 4, 0) under the key (k0, k1) = (per-step seed, per-module stream).
+// where u[i] is word (j mod 4) of Philox4x32-10 applied to the counter
+// (j / 4, 0), j = base + i, under the key (k0, k1) = (per-step seed,
+// per-module stream). The counter base lets a data-parallel rank draw its
+// rows of the global batch's mask: base is the number of elements of the
+// rows before its own, any value (a base that is not a multiple of 4 starts
+// inside a Philox group and takes the scalar loop below).
 // The threshold, the factor and `divide` carry the three dropout flavours of
 // the JAX package (pallas: thr = round(keep * 2^32), times 1/keep; bits8: the
 // top byte against t = round(keep * 256), i.e. thr = t << 24, times 256/t;
@@ -161,21 +165,23 @@ __device__ __forceinline__ uint32_t drop_pair(uint32_t w, uint32_t u0,
   return Cvt<T>::pack(drop<DIV>(f.x, u0, p), drop<DIV>(f.y, u1, p));
 }
 
-// The 16 bytes at vector index v: 4 float32 elements (Philox group v) or 8
-// 16-bit elements (groups 2v and 2v + 1).
+// The 16 bytes at vector index v: 4 float32 elements (Philox group g0 + v)
+// or 8 16-bit elements (groups g0 + 2v and g0 + 2v + 1), g0 the group of
+// element 0.
 template <typename T, bool DIV>
-__device__ __forceinline__ uint4 drop16(uint4 in, long long v,
+__device__ __forceinline__ uint4 drop16(uint4 in, long long v, long long g0,
                                         const Params& p) {
   if constexpr (sizeof(T) == 4) {
-    const uint4 u = philox4x32_10((unsigned long long)v, p.k0, p.k1);
+    const uint4 u = philox4x32_10((unsigned long long)(g0 + v), p.k0, p.k1);
     const auto f = [&](uint32_t w, uint32_t uw) {
       return __float_as_uint(drop<DIV>(__uint_as_float(w), uw, p));
     };
     return make_uint4(f(in.x, u.x), f(in.y, u.y), f(in.z, u.z),
                       f(in.w, u.w));
   } else {
-    const uint4 a = philox4x32_10(2ull * v, p.k0, p.k1);
-    const uint4 b = philox4x32_10(2ull * v + 1ull, p.k0, p.k1);
+    const unsigned long long g = (unsigned long long)(g0 + 2 * v);
+    const uint4 a = philox4x32_10(g, p.k0, p.k1);
+    const uint4 b = philox4x32_10(g + 1ull, p.k0, p.k1);
     return make_uint4(drop_pair<T, DIV>(in.x, a.x, a.y, p),
                       drop_pair<T, DIV>(in.y, a.z, a.w, p),
                       drop_pair<T, DIV>(in.z, b.x, b.y, p),
@@ -184,35 +190,37 @@ __device__ __forceinline__ uint4 drop16(uint4 in, long long v,
 }
 
 // nvec 16-byte vectors from the start of x (0 when x or out is not 16-byte
-// aligned), then the Philox groups from the first element after them to n
-// one element at a time.
+// aligned or base is not a multiple of 4), then the Philox groups from the
+// first element after them to n one element at a time: group g covers
+// elements 4g - base .. 4g - base + 3.
 template <typename T, bool DIV>
 __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
-                   long long nvec, Params p) {
+                   long long nvec, long long base, Params p) {
   const long long stride = (long long)gridDim.x * kThreads;
   const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long g0 = base >> 2;
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   uint4* ov = reinterpret_cast<uint4*>(out);
   for (long long i = first; i < nvec; i += stride)
-    ov[i] = drop16<T, DIV>(__ldg(xv + i), i, p);
-  const long long groups = (n + 3) >> 2;
-  for (long long g = nvec * (long long)(4 / sizeof(T)) + first; g < groups;
-       g += stride) {
+    ov[i] = drop16<T, DIV>(__ldg(xv + i), i, g0, p);
+  const long long groups = (base + n + 3) >> 2;
+  for (long long g = g0 + nvec * (long long)(4 / sizeof(T)) + first;
+       g < groups; g += stride) {
     const uint4 u = philox4x32_10((unsigned long long)g, p.k0, p.k1);
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const long long i = 4 * g + j;
-      if (i < n)
+      const long long i = 4 * g + j - base;
+      if (i >= 0 && i < n)
         out[i] = Cvt<T>::from_f(drop<DIV>(Cvt<T>::to_f(x[i]), w[j], p));
     }
   }
 }
 
 template <typename T, bool DIV>
-cudaError_t launch(const void* x, void* out, long long n, int vec,
-                   const Params& p, cudaStream_t stream) {
+cudaError_t launch(const void* x, void* out, long long n, long long base,
+                   int vec, const Params& p, cudaStream_t stream) {
   static int resident[64];  // blocks per SM that fit, per device
   static int sms[64];
   int dev = 0;
@@ -227,46 +235,49 @@ cudaError_t launch(const void* x, void* out, long long n, int vec,
           &resident[dev], dropout_kernel<T, DIV>, kThreads, 0);
     if (err != cudaSuccess) return err;
   }
-  const long long nvec = vec ? n / (16 / (long long)sizeof(T)) : 0;
+  const long long nvec =
+      vec && (base & 3) == 0 ? n / (16 / (long long)sizeof(T)) : 0;
   const long long work = nvec > 0 ? nvec : (n + 3) / 4;
   long long blocks = (work + kThreads - 1) / kThreads;
   const long long full = (long long)sms[dev] * resident[dev];
   if (blocks > full) blocks = full;
   dropout_kernel<T, DIV><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n, nvec, p);
+      static_cast<const T*>(x), static_cast<T*>(out), n, nvec, base, p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_flavour(const void* x, void* out, long long n, int vec,
-                           int divide, const Params& p,
-                           cudaStream_t stream) {
-  return divide ? launch<T, true>(x, out, n, vec, p, stream)
-                : launch<T, false>(x, out, n, vec, p, stream);
+cudaError_t launch_flavour(const void* x, void* out, long long n,
+                           long long base, int vec, int divide,
+                           const Params& p, cudaStream_t stream) {
+  return divide ? launch<T, true>(x, out, n, base, vec, p, stream)
+                : launch<T, false>(x, out, n, base, vec, p, stream);
 }
 
 }  // namespace
 
-// Host entry point, bound with ctypes. dtype: 0 float32, 1 bfloat16,
-// 2 float16. factor: rounded to the element type by the caller; divide = 1
-// divides survivors by it, 0 multiplies. vec = 1 when x and out are both
-// 16-byte aligned. Launches one kernel on `stream` without synchronising and
-// returns cudaGetLastError(), or cudaErrorInvalidValue for arguments outside
-// the contract.
-extern "C" int vnet_dropout(const void* x, void* out, long long n, int dtype,
-                            unsigned int k0, unsigned int k1, unsigned int thr,
-                            float factor, int divide, int vec,
-                            cudaStream_t stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+// Host entry point, bound with ctypes. base: the counter of element 0 (>= 0).
+// dtype: 0 float32, 1 bfloat16, 2 float16. factor: rounded to the element
+// type by the caller; divide = 1 divides survivors by it, 0 multiplies.
+// vec = 1 when x and out are both 16-byte aligned. Launches one kernel on
+// `stream` without synchronising and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for arguments outside the contract.
+extern "C" int vnet_dropout(const void* x, void* out, long long n,
+                            long long base, int dtype, unsigned int k0,
+                            unsigned int k1, unsigned int thr, float factor,
+                            int divide, int vec, cudaStream_t stream) {
+  if (n < 1 || base < 0) return (int)cudaErrorInvalidValue;
   const Params p{k0, k1, thr, factor, 1.0f / factor};  // IEEE on the host
   switch (dtype) {
     case 0:
-      return (int)launch_flavour<float>(x, out, n, vec, divide, p, stream);
+      return (int)launch_flavour<float>(x, out, n, base, vec, divide, p,
+                                        stream);
     case 1:
-      return (int)launch_flavour<__nv_bfloat16>(x, out, n, vec, divide, p,
-                                                stream);
+      return (int)launch_flavour<__nv_bfloat16>(x, out, n, base, vec,
+                                                divide, p, stream);
     case 2:
-      return (int)launch_flavour<__half>(x, out, n, vec, divide, p, stream);
+      return (int)launch_flavour<__half>(x, out, n, base, vec, divide, p,
+                                         stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

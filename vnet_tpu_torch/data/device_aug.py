@@ -56,11 +56,16 @@ def random_flip(generator: torch.Generator, images: torch.Tensor,
 
 
 def random_noise(generator: torch.Generator, images: torch.Tensor,
-                 sigma: float = 5.0) -> torch.Tensor:
-    """Additive Gaussian noise (``RandomNoise``)."""
-    noise = torch.randn(images.shape, generator=generator,
+                 sigma: float = 5.0, rows=None) -> torch.Tensor:
+    """Additive Gaussian noise (``RandomNoise``). ``rows``: ``(start, stop,
+    n)``, ``images`` are rows ``start:stop`` of a batch of ``n`` and get
+    those rows of the batch's noise (a data-parallel rank's share of one
+    draw, so the ranks together add what one process adds)."""
+    start, stop, n = rows if rows is not None else (0, len(images),
+                                                    len(images))
+    noise = torch.randn((n,) + tuple(images.shape[1:]), generator=generator,
                         device=images.device, dtype=images.dtype)
-    return images + sigma * noise
+    return images + sigma * noise[start:stop]
 
 
 def crop_at(volume: torch.Tensor, label: torch.Tensor, start: torch.Tensor,

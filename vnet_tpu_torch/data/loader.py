@@ -25,7 +25,15 @@ Two parallel backends:
   same posture as PyTorch's fork-based DataLoader. Use
   ``backend="thread"`` (the default) if your transforms call into torch.
 
-The port's copy of ``vnet_tpu/data/loader.py``, equal in behaviour.
+The port's copy of ``vnet_tpu/data/loader.py``, equal in behaviour, with
+one addition for data parallelism: ``rows=(start, stop)`` makes the loader
+yield rows ``start:stop`` of each batch of the epoch, loading only those
+samples. Every rank draws the same epoch order (and, for the process
+backend, the same per-sample seeds) from the same ``seed``, so the ranks'
+batches together are the batch one loader yields. Random host transforms
+repeat the single-process draws only where they are seeded per sample (the
+process backend); the thread and synchronous backends draw them from the
+rank's own generator.
 """
 
 from __future__ import annotations
@@ -50,15 +58,27 @@ class BatchLoader:
       drop_remainder: drop the trailing partial batch (reference behavior).
       num_workers: prefetch threads (0 = synchronous).
       prefetch: max ready samples buffered ahead.
+      rows: ``(start, stop)``: yield only these rows of every batch
+        (a data-parallel rank's block); needs ``drop_remainder``.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_remainder: bool = True, num_workers: int = 2,
                  prefetch: int = 8, seed: Optional[int] = None,
-                 skip_errors: bool = False, backend: str = "thread"):
+                 skip_errors: bool = False, backend: str = "thread",
+                 rows: Optional[Tuple[int, int]] = None):
         if backend not in ("thread", "process"):
             raise ValueError(f"backend must be 'thread' or 'process', "
                              f"got {backend!r}")
+        if rows is not None:
+            if not 0 <= rows[0] < rows[1] <= batch_size:
+                raise ValueError(f"rows {rows} outside a batch of "
+                                 f"{batch_size}")
+            if not drop_remainder or skip_errors:
+                # a partial or shortened batch would split unevenly
+                raise ValueError("rows needs drop_remainder and no "
+                                 "skip_errors")
+        self.rows = rows
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -137,11 +157,10 @@ class BatchLoader:
                 except queue.Empty:
                     break
 
-    def _iter_samples_process(self, order) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    def _iter_samples_process(self, order, seeds) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """Forked worker processes. Per-sample RNG seeding makes the epoch
         deterministic regardless of worker scheduling."""
         ctx = mp.get_context("fork")
-        seeds = self._epoch_rng.integers(0, 2 ** 63, size=len(order))
         task_q = ctx.Queue()
         done_q = ctx.Queue(maxsize=self.prefetch)
         for pos, i in enumerate(order):
@@ -235,6 +254,18 @@ class BatchLoader:
         a new leading batch dim — ``(images, labels[, distance_maps, ...])``.
         """
         order = self._order()
+        seeds = (self._epoch_rng.integers(0, 2 ** 63, size=len(order))
+                 if self.backend == "process" and self.num_workers > 0
+                 else None)
+        batch_size = self.batch_size
+        if self.rows is not None:
+            start, stop = self.rows
+            full = len(order) // batch_size * batch_size
+            row = np.arange(full) % batch_size  # position in its batch
+            keep = (row >= start) & (row < stop)
+            order = order[:full][keep]
+            seeds = None if seeds is None else seeds[:full][keep]
+            batch_size = stop - start
         if self.backend == "process" and not getattr(self, "_warmed", False):
             # datasets with a deterministic-prefix cache warm it in the
             # parent so per-epoch forked workers inherit it (COW) instead
@@ -246,13 +277,13 @@ class BatchLoader:
         if self.num_workers <= 0:
             it = self._iter_samples_sync(order)
         elif self.backend == "process":
-            it = self._iter_samples_process(order)
+            it = self._iter_samples_process(order, seeds)
         else:
             it = self._iter_samples_threaded(order)
         buf = []
         for sample in it:
             buf.append(sample if isinstance(sample, tuple) else (sample,))
-            if len(buf) == self.batch_size:
+            if len(buf) == batch_size:
                 yield tuple(np.stack(col) for col in zip(*buf))
                 buf = []
         if buf and not self.drop_remainder:

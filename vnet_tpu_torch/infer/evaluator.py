@@ -1,4 +1,4 @@
-"""Whole-volume evaluation, 2D or 3D, one device.
+"""Whole-volume evaluation, 2D or 3D, on one device or data-parallel.
 
 Counterpart of ``vnet_tpu/infer/evaluator.py`` (``evaluate_single_3d``,
 ``evaluate_single_2d``, ``evaluate_case``, ``evaluate``): per case, read the
@@ -27,6 +27,13 @@ newest port checkpoint under ``EvaluationSetting.CheckpointPath``
 (``train/checkpoints.py``). The blend
 is the CUDA kernel for ``BlendImpl`` ``auto`` / ``pallas`` on a CUDA
 device; the CPU runs only when ``device`` says so.
+
+In a process group of R > 1 ranks (``parallel/mesh.py``), as JAX's
+evaluator shards its grid whenever it sees more than one device, every
+rank builds the network on its device with rank 0's weights (broadcast),
+runs its block of each case's patch grid and receives the summed
+accumulators (``SlidingWindowInference``'s ``mesh``); only rank 0 writes
+labels and probability maps, and every rank returns once they are on disk.
 """
 
 from __future__ import annotations
@@ -42,10 +49,10 @@ import torch
 from ..config import Config, load_pipeline
 from ..data import build_pipeline, list_cases
 from ..data.dataset2d import extract_slice
-from ..device import resolve_device
 from ..io import (LINEAR, NEAREST, MedicalImage, pad_to_size, read_image,
                   resample_like, write_image, zeros_like_geometry)
 from ..models import build_network, eval_apply
+from ..parallel.mesh import Mesh, make_mesh
 from ..train import checkpoints
 from .postprocess import extract_largest_connected_component, volume_threshold
 from .sliding_window import SlidingWindowInference
@@ -61,11 +68,12 @@ class Evaluator:
 
     def __init__(self, config: Config,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
         self.config = config
         self.t = config.train
         self.e = config.evaluate
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        self.device = self.mesh.device
         net_cfg = self.t.network
         name = "AttentionVNet" if net_cfg.attention else net_cfg.name
         self.is_attention = name == "AttentionVNet"
@@ -96,6 +104,7 @@ class Evaluator:
         if state_dict is None:
             state_dict = self._restore_state_dict()
         self.network.load_state_dict(state_dict)
+        self.mesh.broadcast_module(self.network)
 
         if self.e.label_mode not in ("argmax", "average_hard"):
             raise ValueError(f"unknown LabelMode {self.e.label_mode!r}")
@@ -108,7 +117,7 @@ class Evaluator:
             SlidingWindowInference, self._apply, self.t.patch_shape,
             self.e.stride, self.e.batch_size, self.t.num_classes,
             gaussian_blend=self.e.gaussian_blend,
-            blend_impl=self.e.blend_impl, device=self.device)
+            blend_impl=self.e.blend_impl, device=self.device, mesh=self.mesh)
         # 2D: self.engine is the per-slice engine for ragged planes
         self.engine = engine(hard_accumulate=self.hard_mode)
         self.engine_stacked = (engine(slice_stacked=True)
@@ -260,14 +269,17 @@ class Evaluator:
                 continue
             label, probs = out
             label_path = os.path.join(case_dir, self.e.label_filename)
-            write_image(label, label_path)
             results.append(label_path)
+            if self.mesh.rank != 0:
+                continue
+            write_image(label, label_path)
             if probs is not None:
                 stem, ext = self._split_name(self.e.probability_filename)
                 for c, prob in enumerate(probs):
                     class_id = self.t.segmentation_classes[c]
                     write_image(prob, os.path.join(
                         case_dir, f"{stem}_{class_id}{ext}"))
+        self.mesh.barrier()
         return results
 
     @staticmethod

@@ -1,12 +1,12 @@
-"""Overlap-tiled sliding-window inference, 2D or 3D, one device.
+"""Overlap-tiled sliding-window inference, 2D or 3D, on one device or
+sharded over data-parallel ranks.
 
-Counterpart of ``vnet_tpu/infer/sliding_window.py`` for an unsharded grid:
-the same patch grid (strided starts with the last start clamped), the same
-padding of the grid to whole batches (the last real row repeated with
-validity flag 0: it runs through the network, so with ``Norm:
-batch_stats`` it feeds the batch statistics exactly as in JAX, and adds zero
-blend weight), the same uniform or cosine window and the optional
-hard-prediction channel.
+Counterpart of ``vnet_tpu/infer/sliding_window.py``: the same patch grid
+(strided starts with the last start clamped), the same padding of the grid
+to whole batches (the last real row repeated with validity flag 0: it runs
+through the network, so with ``Norm: batch_stats`` it feeds the batch
+statistics exactly as in JAX, and adds zero blend weight), the same uniform
+or cosine window and the optional hard-prediction channel.
 
 A 3D grid blends into a channels-last ``(X, Y, Z, 1 + C)`` accumulator,
 with the blend weight as channel 0, and the result is ``(acc[..., 1:],
@@ -31,18 +31,30 @@ results are the same batch for batch.
   counterpart of JAX's XLA path.
 
 Both are the same arithmetic in the same order.
+
+``mesh`` (``parallel/mesh.py``) of R > 1 ranks shards the grid as JAX's
+``mesh=`` does (``P(axis)`` under ``shard_map``): the grid is padded to a
+multiple of ``batch_size * R``, rank r takes the r-th contiguous block of
+the padded rows, runs its batches through its network (batch statistics
+are the rank's own, as each device's are under ``shard_map``) and blends
+them with the same blend into a full-size accumulator of its own; one
+all-reduce sums the accumulators, blend weight included, so every rank
+returns the whole volume's sums. The 3D and the slice-stacked 2D grids
+take the same path. JAX refuses its Pallas blend with a mesh for a Mosaic
+limit; the port's kernel has none, so the sharded grid uses it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ops.blend import blend_accumulate_patches, blend_accumulate_plain
+from ..parallel.mesh import Mesh
 
 
 def patch_starts_1d(dim: int, patch: int, stride: int) -> list:
@@ -80,7 +92,8 @@ def cosine_window(patch_shape: Sequence[int]) -> np.ndarray:
 
 
 class SlidingWindowInference:
-    """Overlap-tiled inference for one network on one device.
+    """Overlap-tiled inference for one network on one device, or sharded
+    over the ranks of ``mesh``.
 
     Args:
       apply_fn: ``apply_fn(patches) -> logits``, ``(B, *patch, C_in)`` to
@@ -99,13 +112,15 @@ class SlidingWindowInference:
         C)``.
       device: where the volume, the accumulators and the network run;
         ``"cuda"`` by default, which raises where torch sees no card.
+      mesh: data-parallel ranks to shard the grid over (module docstring);
+        ``None`` or one rank runs the whole grid here.
     """
 
     def __init__(self, apply_fn: Callable, patch_shape: Sequence[int],
                  stride: Sequence[int], batch_size: int, num_classes: int,
                  gaussian_blend: bool = False, hard_accumulate: bool = False,
                  blend_impl: str = "auto", slice_stacked: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
         self.apply_fn = apply_fn
         self.patch_shape = tuple(int(p) for p in patch_shape)
         self.stride = tuple(int(s) for s in stride)
@@ -127,6 +142,7 @@ class SlidingWindowInference:
                              f"got {blend_impl!r}")
         self.use_kernel = blend_impl in ("auto", "pallas")
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.parallel else None
         self.blend_window = (cosine_window(self.patch_shape)
                              if gaussian_blend else
                              np.ones(self.patch_shape, np.float32))
@@ -165,12 +181,18 @@ class SlidingWindowInference:
                                     axis=-1)
             block = (1,) + self.patch_shape
         n, bsz = starts.shape[0], self.batch_size
-        total = -(-n // bsz) * bsz
+        ranks = 1 if self.mesh is None else self.mesh.data
+        total = -(-n // (bsz * ranks)) * bsz * ranks
         if total > n:
             starts = np.concatenate(
                 [starts, np.repeat(starts[-1:], total - n, axis=0)])
         flags = np.zeros(total, np.float32)
         flags[:n] = 1.0
+        if self.mesh is not None:  # the rank's contiguous block
+            per = total // ranks
+            block0 = self.mesh.rank * per
+            starts = starts[block0:block0 + per]
+            flags = flags[block0:block0 + per]
 
         dev = self.device
         vol = torch.from_numpy(
@@ -184,7 +206,7 @@ class SlidingWindowInference:
         ones = (1,) * self.rank
         bx, by, bz = block
 
-        for lo in range(0, total, bsz):
+        for lo in range(0, len(starts), bsz):
             rows = starts[lo:lo + bsz]
             patches = torch.stack([vol[x:x + bx, y:y + by, z:z + bz]
                                    for x, y, z in rows.tolist()])
@@ -198,6 +220,8 @@ class SlidingWindowInference:
                        * flag.view((bsz,) + ones + (1,)))
             blend(acc, contrib.reshape((bsz,) + block + (-1,)).contiguous(),
                   torch.from_numpy(rows))
+        if self.mesh is not None:
+            acc = self.mesh.sum(acc)
         if one_slice:
             acc = acc[0]
         return acc[..., 1:], acc[..., 0]

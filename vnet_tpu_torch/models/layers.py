@@ -26,6 +26,17 @@ Training mode: batch norms update their running averages in place under
 card) and a 3D ``SpatialConv(dw_impl="pallas")`` takes its weight gradient
 from ``ops/dw_conv.py``.
 
+Data parallelism (``parallel/mesh.py``): inside ``data_parallel(mesh)``,
+which the training and evaluation steps set, every batch norm that
+computes batch statistics averages ``(E[x], E[x^2])`` over the ranks,
+differentiably (one all-reduce forward, one backward), as flax's
+``BatchNorm`` reduces over the global batch under JAX's data-parallel jit;
+shards are equal, so the mean of the ranks' moments is the global one, and
+the running averages are the same on every rank. ``Dropout`` counts its
+mask from the rank's first element of the global batch, so the ranks draw
+the global batch's mask. Outside that context (the sliding window, as
+JAX's ``shard_map``) statistics are the rank's own.
+
 Packed domain (``ops/s2d.py``): a tensor of ``groups * C`` channels,
 offset-major. Whether a layer runs packed depends on the input's extents,
 which JAX decides when it traces; here the owning network decides it at
@@ -52,6 +63,7 @@ from ..ops.dropout import dropout as dropout_op
 from ..ops.dw_conv import conv3d_dw
 from ..ops.s2d import (norm_factors, packed_conv, packed_down_conv,
                        prod_factors, s2d_conv, s2d_down_conv, s2d_up_conv)
+from ..parallel.mesh import active_mesh, all_reduce_mean
 
 NORM_KINDS = ("batch", "batch_stats", "group", "instance", "none")
 ACTIVATIONS = ("relu", "prelu", "lrelu")
@@ -75,6 +87,19 @@ def _glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
     lim = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         w.uniform_(-lim, lim, generator=generator)
+
+
+def batch_moments(xf: torch.Tensor, axes=None):
+    """``(E[x], E[x^2])`` of float32 ``xf`` over ``axes`` (every axis for
+    ``None``), averaged over the ranks of the active data-parallel mesh."""
+    if axes is None:
+        mean, sq = xf.mean(), xf.square().mean()
+    else:
+        mean, sq = xf.mean(axes), xf.square().mean(axes)
+    mesh = active_mesh()
+    if mesh is not None:
+        mean, sq = all_reduce_mean(torch.stack([mean, sq]), mesh).unbind(0)
+    return mean, sq
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple:
@@ -149,9 +174,8 @@ class BatchNorm(nn.Module):
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
-            axes = (0,) + tuple(range(2, x.ndim))
-            mean = xf.mean(axes)
-            var = torch.clamp_min(xf.square().mean(axes) - mean.square(), 0.0)
+            mean, sq = batch_moments(xf, (0,) + tuple(range(2, x.ndim)))
+            var = torch.clamp_min(sq - mean.square(), 0.0)
             if self.training:
                 self.update_running(mean, var)
         mul = torch.rsqrt(var + _EPS) * self.weight
@@ -166,9 +190,8 @@ class BatchNorm(nn.Module):
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
-            axes = (0, 1) + tuple(range(3, xf.ndim))
-            mean = xf.mean(axes)
-            var = xf.square().mean(axes) - mean.square()
+            mean, sq = batch_moments(xf, (0, 1) + tuple(range(3, xf.ndim)))
+            var = sq - mean.square()
             if self.training:
                 self.update_running(mean, var)
         view = (1, 1, c) + (1,) * (x.ndim - 2)
@@ -288,9 +311,8 @@ class TiledInputBatchNorm(nn.Module):
         if self.kind == "batch" and not self.training:
             mean, var = bn.running_mean, bn.running_var
         else:
-            xf = x1.float()
-            mu = xf.mean()
-            var_s = xf.square().mean() - mu.square()
+            mu, sq = batch_moments(x1.float())
+            var_s = sq - mu.square()
             mean, var = mu.expand(c), var_s.expand(c)
             if self.training:
                 bn.update_running(mean, var)
@@ -511,7 +533,10 @@ class Dropout(nn.Module):
         if self.seed is None:
             raise ValueError("training-mode dropout needs a step seed "
                              "(VNet.forward(x, dropout_seed=...))")
-        return dropout_op(x, self.seed, self.index, self.rate, self.impl)
+        mesh = active_mesh()  # the rank's rows of the global batch's mask
+        base = 0 if mesh is None else mesh.rank * x.numel()
+        return dropout_op(x, self.seed, self.index, self.rate, self.impl,
+                          base)
 
 
 class DownConv(nn.Module):

@@ -9,9 +9,12 @@ the three flavours of ``vnet_tpu/models/layers.py::Dropout``:
 
 ``u`` is a 32-bit word of Philox4x32-10 keyed by ``(seed, stream)`` and
 counted by the element's position in the JAX layout's ``(B, X, Y, Z, C)``
-order, or ``(B, H, W, C)`` for the 2D network (``csrc/dropout.cu``). The
-backward pass applies the same function to the gradient with the same key,
-so nothing but the key is saved. The
+order, or ``(B, H, W, C)`` for the 2D network (``csrc/dropout.cu``), plus
+a counter base: a data-parallel rank passes the number of elements of the
+global batch's rows before its own, so its mask is those rows of the
+global batch's mask, whatever the base's remainder mod 4 (one Philox call
+covers four elements). The backward pass applies the same function to the
+gradient with the same key and base, so nothing but the key is saved. The
 threshold, factor and operation of each flavour (:func:`dropout_params`):
 
 * ``pallas``: ``thr = min(round(keep * 2**32), 2**32 - 1)``, survivors
@@ -96,15 +99,17 @@ def philox4x32_10(counter: torch.Tensor, k0: int, k1: int) -> torch.Tensor:
 
 
 def keep_mask(n: int, seed: int, stream: int, thr: int,
-              device=None) -> torch.Tensor:
-    """Boolean keep mask of ``n`` elements in counter order."""
-    groups = (n + 3) // 4
+              device=None, base: int = 0) -> torch.Tensor:
+    """Boolean keep mask of the ``n`` elements from ``base`` on, in counter
+    order."""
+    lo, hi = base // 4, (base + n + 3) // 4
     parts = []
-    for start in range(0, groups, _PLAIN_GROUPS):
-        counter = torch.arange(start, min(start + _PLAIN_GROUPS, groups),
+    for start in range(lo, hi, _PLAIN_GROUPS):
+        counter = torch.arange(start, min(start + _PLAIN_GROUPS, hi),
                                dtype=torch.int64, device=device)
         parts.append((philox4x32_10(counter, seed, stream) < thr).reshape(-1))
-    return torch.cat(parts)[:n]
+    skip = base - 4 * lo
+    return torch.cat(parts)[skip:skip + n]
 
 
 _CHANNELS_LAST = {4: torch.channels_last, 5: torch.channels_last_3d}
@@ -140,11 +145,11 @@ def _in_dtype(factor: float, dtype: torch.dtype) -> float:
 
 
 def dropout_plain(x: torch.Tensor, seed: int, stream: int, thr: int,
-                  factor: float, divide: bool) -> torch.Tensor:
+                  factor: float, divide: bool, base: int = 0) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch; any device."""
     xs = _storage_order(x)
     f = _in_dtype(factor, x.dtype)
-    keep = keep_mask(xs.numel(), seed, stream, thr, x.device)
+    keep = keep_mask(xs.numel(), seed, stream, thr, x.device, base)
     xf = _flat(xs).float()
     # a 0-d tensor on x's device: PyTorch's CUDA division by a Python
     # scalar multiplies by its reciprocal, which can differ by one ulp
@@ -159,7 +164,8 @@ def bind(lib: ctypes.CDLL):
     """``lib.vnet_dropout`` with its C signature."""
     fn = lib.vnet_dropout
     fn.argtypes = ([ctypes.c_void_p] * 2
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
+                   + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_uint,
                       ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -172,26 +178,28 @@ def _kernel():
 
 
 def dropout_apply(x: torch.Tensor, seed: int, stream: int, thr: int,
-                  factor: float, divide: bool) -> torch.Tensor:
+                  factor: float, divide: bool, base: int = 0) -> torch.Tensor:
     """``where(u < thr, x / factor if divide else x * factor, 0)`` with
-    ``u`` from the key ``(seed, stream)`` (:func:`dropout_params` gives
-    ``thr, factor, divide``); returns a new tensor, channels-last for 4D
-    and 5D input. CUDA tensors launch ``csrc/dropout.cu``; CPU tensors take
-    :func:`dropout_plain`."""
+    ``u`` from the key ``(seed, stream)`` counted from element ``base``
+    (:func:`dropout_params` gives ``thr, factor, divide``); returns a new
+    tensor, channels-last for 4D and 5D input. CUDA tensors launch
+    ``csrc/dropout.cu``; CPU tensors take :func:`dropout_plain`."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"dropout takes float32, bfloat16 or float16, got "
                         f"{x.dtype}")
+    if base < 0:
+        raise ValueError(f"counter base must be >= 0, got {base}")
     if x.device.type == "cpu":
-        return dropout_plain(x, seed, stream, thr, factor, divide)
+        return dropout_plain(x, seed, stream, thr, factor, divide, base)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out = launch_with(_kernel(), x, seed, stream, thr, factor, divide)
+    out = launch_with(_kernel(), x, seed, stream, thr, factor, divide, base)
     dropout_apply.launches += 1
     return out
 
 
 def launch_with(fn, x: torch.Tensor, seed: int, stream: int, thr: int,
-                factor: float, divide: bool) -> torch.Tensor:
+                factor: float, divide: bool, base: int = 0) -> torch.Tensor:
     """Launch ``fn``, a ctypes function with ``vnet_dropout``'s interface,
     on a CUDA tensor ``x`` as :func:`dropout_apply` does, without counting
     (``tools/dropout_bench.py`` times other builds of the kernel with it)."""
@@ -200,7 +208,7 @@ def launch_with(fn, x: torch.Tensor, seed: int, stream: int, thr: int,
     if xs.numel() == 0:
         return out
     x_ptr, out_ptr = xs.data_ptr(), out.data_ptr()
-    args = (x_ptr, out_ptr, xs.numel(), _DTYPES[x.dtype],
+    args = (x_ptr, out_ptr, xs.numel(), int(base), _DTYPES[x.dtype],
             int(seed) & _MASK32, int(stream) & _MASK32, int(thr),
             _in_dtype(factor, x.dtype), int(bool(divide)),
             int((x_ptr | out_ptr) % 16 == 0))
@@ -223,18 +231,19 @@ class _Dropout(torch.autograd.Function):
     """Forward and backward are the same masked scale under one key."""
 
     @staticmethod
-    def forward(ctx, x, seed, stream, thr, factor, divide):
-        ctx.key = (seed, stream, thr, factor, divide)
-        return dropout_apply(x, seed, stream, thr, factor, divide)
+    def forward(ctx, x, seed, stream, thr, factor, divide, base):
+        ctx.key = (seed, stream, thr, factor, divide, base)
+        return dropout_apply(x, seed, stream, thr, factor, divide, base)
 
     @staticmethod
     def backward(ctx, g):
-        return dropout_apply(g, *ctx.key), None, None, None, None, None
+        return (dropout_apply(g, *ctx.key),) + (None,) * 6
 
 
 def dropout(x: torch.Tensor, seed: int, stream: int, rate: float,
-            impl: str = "pallas") -> torch.Tensor:
-    """Differentiable dropout of ``x`` under the key ``(seed, stream)``;
-    ``rate`` in (0, 1), ``impl`` one of :data:`IMPLS`."""
+            impl: str = "pallas", base: int = 0) -> torch.Tensor:
+    """Differentiable dropout of ``x`` under the key ``(seed, stream)``,
+    counted from element ``base``; ``rate`` in (0, 1), ``impl`` one of
+    :data:`IMPLS`."""
     return _Dropout.apply(x, int(seed), int(stream),
-                          *dropout_params(rate, impl))
+                          *dropout_params(rate, impl), int(base))

@@ -23,11 +23,13 @@ layer, forward and backward (the backward regenerates the mask):
 For each distinct shape (bf16, channels-last, random data from a seed) and
 flavour: the kernel's device ms per launch, the median over a
 ``torch.profiler`` trace of ``LAUNCHES`` launches (after an untimed trace;
-records too short to be right are dropped, see :func:`span_median`);
-the CUDA-event ms per launch around ``LAUNCHES`` launches
-that rotate over enough input buffers to fill twice the 50 MB L2 cache, so
-that no launch reads its input from L2, which must agree with the device
-ms where the input fills the L2 (:func:`check_events`); the CUDA-event ms
+records too short to be right are dropped, and a trace that
+:func:`span_median` refuses is taken again, see :func:`device_ms`);
+the CUDA-event ms per launch around ``LAUNCHES`` launches, all queued
+behind a spin before the first event, that rotate over enough input
+buffers to fill twice the 50 MB L2 cache, so that no launch reads its
+input from L2, which must agree with the device ms where the input fills
+the L2 (:func:`check_events`); the CUDA-event ms
 around a single
 wrapper call (median of 25; host time included, as the readings before
 this tool were taken); the wrapper's host microseconds per call
@@ -81,13 +83,20 @@ RATE = 0.01  # every shipped config's Dropout
 LAUNCHES = 50
 L2_BYTES = 50e6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
-# Where the input is at least CHECK_BYTES, launches queue ahead of the card
-# and the event time per launch must be within EVENT_MARGIN of the device
-# time. Below it, the event time holds the host's enqueue (2x the device
-# time at 17 MB on the H100); at or above it the two differed by at most
-# 8.2% on the H100 (PERF.md).
+# Where the input is at least CHECK_BYTES, the event time per launch must be
+# within EVENT_MARGIN of the device time. Below it, the event time held the
+# host's enqueue (2x the device time at 17 MB on the H100); at or above it
+# the two differed by at most 8.2% on the H100 (PERF.md).
 CHECK_BYTES = 64e6
 EVENT_MARGIN = 0.15
+# event_ms first holds the card in a spin of this many clock cycles (about
+# 50 ms at the H100's 1.98 GHz) while the host queues every timed launch, so
+# a host slowed by other processes cannot stretch the event time.
+QUEUE_CYCLES = 100_000_000
+# Traces device_ms takes before it gives up: a busy host has made the
+# tracer lose records or cut spans short (on the H100 machine, 38 records
+# for 50 launches, all under the floor).
+TRACE_TRIES = 4
 
 
 def step_network(step: str, device="meta"):
@@ -167,25 +176,35 @@ def span_median(spans, count: int, floor: float):
 
 
 def device_ms(call, count: int, floor: float):
-    """``(ms, kernel names, dropped)``: :func:`span_median` of the one
-    kernel each of ``count`` calls ``call(i)`` launches, from a
+    """``(ms, kernel names, dropped, retakes)``: :func:`span_median` of the
+    one kernel each of ``count`` calls ``call(i)`` launches, from a
     ``torch.profiler`` trace taken after an untimed one (a cold trace can
-    drop kernel records)."""
+    drop kernel records). A trace that :func:`span_median` refuses is
+    taken again (``retakes``), up to ``TRACE_TRIES`` in all; the last
+    refusal raises."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts):
         for i in range(2):
             call(i)
         torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for i in range(count):
-            call(i)
-        torch.cuda.synchronize()
-    spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    ms, dropped = span_median([t for _, t in spans], count, floor)
-    return ms, sorted({name for name, _ in spans}), dropped
+    for retakes in range(TRACE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for i in range(count):
+                call(i)
+            torch.cuda.synchronize()
+        spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        try:
+            ms, dropped = span_median([t for _, t in spans], count, floor)
+        except SystemExit as e:
+            print(f"trace {retakes + 1} of {TRACE_TRIES} refused: {e}",
+                  flush=True)
+            if retakes == TRACE_TRIES - 1:
+                raise
+            continue
+        return ms, sorted({name for name, _ in spans}), dropped, retakes
 
 
 def check_events(what: str, shape, device: float, event: float,
@@ -199,14 +218,18 @@ def check_events(what: str, shape, device: float, event: float,
                          f"more than {EVENT_MARGIN:.0%} apart")
 
 
-def event_ms(call, count: int) -> float:
+def event_ms(call, count: int, queue_cycles: int = QUEUE_CYCLES) -> float:
     """CUDA-event ms per call around ``count`` calls, after one warm-up
-    pass."""
+    pass, with every call queued behind a spin of ``queue_cycles`` before
+    the first event: the card's back-to-back time (0: no spin, so the host's
+    enqueue rate shows, as ``tools/event_check.py`` compares)."""
     for i in range(count):
         call(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_cycles:
+        torch.cuda._sleep(queue_cycles)
     start.record()
     for i in range(count):
         call(i)
@@ -280,11 +303,12 @@ def measure_shape(shape, impls, gen, compare=()):
         def kernel(i):
             return dropout_apply(xs[i % len(xs)], 1234, 5, *params)
 
-        ms, names, dropped = device_ms(kernel, count, floor)
+        ms, names, dropped, retakes = device_ms(kernel, count, floor)
         if not all("dropout_kernel" in n for n in names):
             raise SystemExit(f"dropout_bench: other kernels {names}")
         row = dict(shape=list(shape), impl=impl, device_ms=ms,
-                   dropped=dropped, event_ms=event_ms(kernel, count),
+                   dropped=dropped, retakes=retakes,
+                   event_ms=event_ms(kernel, count),
                    call_ms=call_ms(kernel), host_us=host_us(kernel),
                    bound_ms=bound_ms(shape))
         check_events(impl, shape, ms, row["event_ms"])
@@ -299,9 +323,10 @@ def measure_shape(shape, impls, gen, compare=()):
             if not equal:
                 raise SystemExit(f"dropout_bench: {name} differs from the "
                                  f"package's kernel at {shape} {impl}")
-            c_ms, c_names, c_dropped = device_ms(other, count, floor)
+            c_ms, c_names, c_dropped, c_retakes = device_ms(other, count,
+                                                            floor)
             row[name] = dict(device_ms=c_ms, kernels=c_names,
-                             dropped=c_dropped,
+                             dropped=c_dropped, retakes=c_retakes,
                              event_ms=event_ms(other, count),
                              host_us=host_us(other), bitwise_equal=equal)
             check_events(f"{name} {impl}", shape, c_ms,
@@ -312,9 +337,10 @@ def measure_shape(shape, impls, gen, compare=()):
         return F.dropout(xs[i % len(xs)], RATE, training=True)
 
     # F.dropout also writes a one-byte mask: its floor is higher still
-    lib_ms, lib_names, lib_dropped = device_ms(library, count, floor)
+    lib_ms, lib_names, lib_dropped, lib_retakes = device_ms(library, count,
+                                                            floor)
     lib = dict(device_ms=lib_ms, kernels=lib_names, dropped=lib_dropped,
-               event_ms=event_ms(library, count))
+               retakes=lib_retakes, event_ms=event_ms(library, count))
     check_events("F.dropout", shape, lib_ms, lib["event_ms"])
     for row in rows:
         row["F.dropout"] = lib

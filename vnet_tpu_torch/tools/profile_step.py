@@ -5,6 +5,7 @@
         --impl xla
     python -m vnet_tpu_torch.tools.profile_step --config2d --impl xla
     python -m vnet_tpu_torch.tools.profile_step --conv_impl direct
+    python -m vnet_tpu_torch.tools.profile_step --group [--rounds 3]
 
 Builds ``bench.py``'s flagship training step (the 3D V-Net of
 ``configs/config.json`` at full width, bf16, 64^3 patches, weighted
@@ -26,7 +27,12 @@ last device event. ``--impl`` sets ``DropoutImpl`` and ``DwImpl`` together;
 builds it) or the direct one. The profiled step's ``aten::copy_`` calls are
 counted (layout copies among them). ``--find FRAGMENT`` names the operators
 whose device kernels hold that fragment, with their input shapes (which
-layer launched them), their launches and device ms. Needs a CUDA card.
+layer launched them), their launches and device ms. ``--group`` times the
+flagship step at world size 1, inside a process group of one rank (``nccl``,
+the trainer's mesh, as ``python -m vnet_tpu_torch --devices 0`` runs on one
+card), against the same process's step without a process group, in turns
+(none, group, group, none per round), and counts the collectives the
+grouped steps call (there must be none). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 
 from ..config import LossConfig, OptimizerConfig
 from ..models import build_network
+from ..parallel.mesh import batch_rows
 from ..train import TrainState, make_train_step
 from ..train.optim import build_optimizer
 
@@ -55,6 +62,7 @@ BATCH_2D = 32
 # kernels are the matrix products (the packed network's down and up
 # convolutions, its 1^r output conv, and the packed kernels' dx)
 GROUPS = (
+    ("nccl", "collectives"),
     ("dw_mma_kernel", "dW kernel"), ("dw_partial_kernel", "dW kernel"),
     ("dw_reduce_kernel", "dW kernel"),
     ("dropout_kernel", "dropout kernel"),
@@ -70,10 +78,13 @@ CONV_IMPLS = ("packed", "direct")
 
 
 def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
-                  patch=PATCH, conv_impl: str = "packed"):
-    """``(state, step_fn, images, labels)`` of the flagship workload."""
+                  patch=PATCH, conv_impl: str = "packed", mesh=None,
+                  dtype=torch.bfloat16, compute_metrics: bool = False):
+    """``(state, step_fn, images, labels)`` of the flagship workload;
+    ``batch`` is the global batch, and with a data-parallel ``mesh`` the
+    step is the mesh's and the tensors are the rank's rows."""
     net = build_network("VNet", num_classes=NUM_CLASSES, dropout_rate=0.01,
-                        norm="batch", dtype=torch.bfloat16, device=device,
+                        norm="batch", dtype=dtype, device=device,
                         generator=torch.Generator().manual_seed(seed),
                         dropout_impl=impl, dw_impl=impl, conv_impl=conv_impl)
     opt, schedule = build_optimizer(
@@ -82,12 +93,14 @@ def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
         net.parameters())
     step = make_train_step(
         LossConfig(name="weighted_sorensen", weights=(0.01, 0.1, 1.0)),
-        NUM_CLASSES, schedule, compute_metrics=False)
+        NUM_CLASSES, schedule, compute_metrics=compute_metrics, mesh=mesh)
     host = np.random.default_rng(seed)
+    lo, hi = (0, batch) if mesh is None else batch_rows(mesh, batch)
     images = torch.from_numpy(host.normal(size=(batch,) + patch + (1,))
-                              .astype(np.float32)).to(device)
+                              .astype(np.float32)[lo:hi]).to(device)
     labels = torch.from_numpy(host.integers(
-        0, NUM_CLASSES, size=(batch,) + patch).astype(np.int32)).to(device)
+        0, NUM_CLASSES, size=(batch,) + patch).astype(np.int32)[lo:hi]).to(
+            device)
     return TrainState(net, opt), step, images, labels
 
 
@@ -159,6 +172,60 @@ def timed_steps(state, step, images, labels, n: int):
     return times, losses
 
 
+COLLECTIVES = ("all_reduce", "broadcast", "barrier", "broadcast_object_list",
+               "all_gather", "reduce_scatter")
+
+
+def count_collectives():
+    """Wrap ``torch.distributed``'s collectives with call counters; returns
+    ``(counts, restore)``."""
+    import torch.distributed as dist
+
+    counts, real = defaultdict(int), {}
+    for name in COLLECTIVES:
+        real[name] = getattr(dist, name)
+
+        def counted(*args, _name=name, **kwargs):
+            counts[_name] += 1
+            return real[_name](*args, **kwargs)
+
+        setattr(dist, name, counted)
+
+    def restore():
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+    return counts, restore
+
+
+def group_vs_none(impl: str, batch: int, steps: int, rounds: int,
+                  conv_impl: str):
+    """``({"none": [ms], "group": [ms]}, collectives)``: the flagship step
+    without a process group and at world size 1 inside one (a network of
+    its own built there with the trainer's mesh, the same weights), timed
+    in turns none, group, group, none, ``rounds`` times."""
+    from ..parallel.mesh import launch, make_mesh
+
+    plain = flagship_step(impl, batch, conv_impl=conv_impl)
+    grouped = launch(lambda: flagship_step(impl, batch, conv_impl=conv_impl,
+                                           mesh=make_mesh()), 1)
+    timed_steps(*plain, 1)
+    launch(lambda: timed_steps(*grouped, 1), 1)
+    readings = {"none": [], "group": []}
+    counts, restore = count_collectives()
+    try:
+        for _ in range(rounds):
+            for kind in ("none", "group", "group", "none"):
+                if kind == "none":
+                    readings[kind] += timed_steps(*plain, steps)[0]
+                else:
+                    readings[kind] += launch(
+                        lambda: timed_steps(*grouped, steps)[0], 1)
+    finally:
+        restore()
+    return readings, dict(counts)
+
+
 def group_of(name: str) -> str:
     low = name.lower()
     for fragment, group in GROUPS:
@@ -228,6 +295,11 @@ def main(argv=None):
                       help="the attention-gated step instead")
     mode.add_argument("--config2d", action="store_true",
                       help="configs/config_2d.json's 2D step instead")
+    mode.add_argument("--group", action="store_true",
+                      help="the flagship step in a process group of one "
+                           "rank against none, in turns")
+    parser.add_argument("--rounds", type=int, default=3,
+                        help="--group: rounds of none, group, group, none")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
@@ -243,6 +315,19 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    if args.group:
+        print(f"card: {smi}")
+        readings, collectives = group_vs_none(
+            args.impl, args.batch, args.steps, args.rounds, args.conv_impl)
+        for kind, ms in readings.items():
+            q = statistics.quantiles(ms, n=4)
+            print(f"flagship step, conv_impl {args.conv_impl}, impl "
+                  f"{args.impl}, batch {args.batch}, {kind:5s}: median "
+                  f"{statistics.median(ms):.2f} ms, quartiles {q[0]:.2f} "
+                  f"{q[2]:.2f}, min {min(ms):.2f} max {max(ms):.2f} over "
+                  f"{len(ms)} steps: {[round(t, 2) for t in ms]}")
+        print(f"collectives called by the grouped steps: {collectives}")
+        return
     state, step, images, labels = build(args.impl, args.batch,
                                         conv_impl=args.conv_impl)
     torch.cuda.reset_peak_memory_stats()

@@ -7,7 +7,9 @@ optimizer's ``state_dict``, ``step`` and ``epoch`` — so that a resumed run
 continues the step and epoch counts. The newest checkpoint is the one with
 the highest step, as orbax's ``CheckpointManager.latest_step`` finds it;
 only the ``max_to_keep`` newest files are kept. ``restore_latest`` returns
-the model weights alone, which is what evaluation needs.
+the model weights alone, which is what evaluation needs. In a data-parallel
+run only rank 0 writes (the trainer calls :func:`save` there alone), and
+every rank restores the step rank 0 found (:func:`restore_state`).
 """
 
 from __future__ import annotations
@@ -62,14 +64,19 @@ def _to_cpu(tree: Any) -> Any:
     return tree
 
 
-def restore_latest_state(directory: str) -> Optional[dict]:
-    """The newest checkpoint under ``directory`` as ``{"model",
-    "optimizer", "step", "epoch"}`` (CPU tensors), or None."""
-    step = latest_step(directory)
-    if step is None:
-        return None
-    return torch.load(os.path.join(directory, f"ckpt_{step}.pt"),
+def restore_state(directory: str, step: int) -> dict:
+    """The checkpoint of ``step`` under ``directory`` as ``{"model",
+    "optimizer", "step", "epoch"}`` (CPU tensors). Data-parallel ranks
+    restore the step rank 0 found, so they resume from the same one."""
+    return torch.load(os.path.join(directory, f"ckpt_{int(step)}.pt"),
                       map_location="cpu", weights_only=True)
+
+
+def restore_latest_state(directory: str) -> Optional[dict]:
+    """The newest checkpoint under ``directory`` (:func:`restore_state`),
+    or None."""
+    step = latest_step(directory)
+    return None if step is None else restore_state(directory, step)
 
 
 def restore_latest(directory: str) -> Optional[Dict[str, torch.Tensor]]:

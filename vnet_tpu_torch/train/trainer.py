@@ -7,9 +7,9 @@ defaults): packed convolutions with adaptive per-level packing at
 zoo; ``build_network(..., conv_impl="direct")`` builds the direct one.
 ``Remat: true`` is accepted and ignored, with a warning (ROADMAP.md).
 
-One device, eager PyTorch: the step is forward (the network in train mode,
-dropout keyed by the step's seed), loss, ``backward``, optimizer step, in
-place on the network and optimizer that :class:`TrainState` holds. The loop
+Eager PyTorch: the step is forward (the network in train mode, dropout
+keyed by the step's seed), loss, ``backward``, optimizer step, in place on
+the network and optimizer that :class:`TrainState` holds. The loop
 keeps the JAX trainer's semantics: a checkpoint every ``LogInterval`` steps
 and at the end of every ``CheckpointEveryNEpochs``-th epoch, the epoch
 counter inside the checkpoint so a resumed run continues it, ``Restore:
@@ -39,8 +39,24 @@ Logs: each tag directory ``LogDir/<tag>/`` gets a TensorBoard events file
 (``train/events.py``; the JAX trainer's tags) and ``scalars.jsonl`` (one
 JSON object per value: ``tag``, ``step``, ``value``). ``ImageLog`` adds the
 input, label, softmax and prediction images at every ``LogInterval``
-checkpoint and every test step. Multi-device meshes raise
-``NotImplementedError`` (ROADMAP.md).
+checkpoint and every test step.
+
+Data parallelism (``parallel/mesh.py``), run inside a process group, one
+process a GPU: the data axis takes ``Mesh.DataParallel`` ranks, or for 0
+``gcd(BatchSize, ranks)``, as the JAX trainer sizes its mesh, and must be
+the whole group; ``DcnDataParallel`` lays it over nodes, DCN-major. Each
+rank builds the same network on ``cuda:<local rank>`` (rank 0's weights
+broadcast at start and after a resume), loads only its block of each
+global batch (``batch_rows``; the loader's ``rows``), and runs the step
+inside ``data_parallel(mesh)``: batch statistics, dropout masks and the
+device augmentation's draws are the global batch's, the gradients are
+averaged over the ranks before the optimizer (one all-reduce), and the
+logged loss, aux values and metrics are global. So a step at R ranks
+computes what one process computes on the global batch. Only rank 0
+writes checkpoints, ``network_config.json`` and the logs; the others wait
+at a barrier where a later read needs the files. ``ImageLog`` shows rank
+0's rows. ``SpaceParallel`` above 1 raises ``NotImplementedError``
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,10 +76,12 @@ from ..data import (BatchLoader, NiftiDataset2D, NiftiDataset3D,
                     build_pipeline)
 from ..data.device_aug import flip_coins, flip_where, random_noise
 from ..data.transforms3d import RandomFlip, RandomNoise
-from ..device import resolve_device
 from ..models import attention_distance_loss, build_network, eval_apply
 from ..ops.losses import segmentation_loss
 from ..ops.metrics import batch_metrics
+from ..parallel.mesh import (Mesh, batch_rows, data_parallel,
+                             data_parallel_size, make_mesh,
+                             make_multislice_mesh)
 from ..profiler import StepTimer
 from . import checkpoints
 from .events import EventWriter
@@ -100,10 +118,24 @@ def augment_generator(device: torch.device,
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def _global_output(mesh: Optional[Mesh], loss, aux, metrics
+                   ) -> TrainStepOutput:
+    """The step's values, loss and aux averaged over the ranks (one
+    all-reduce; the ranks' shards are equal, so this is the global batch's
+    mean)."""
+    if mesh is None or not mesh.parallel:
+        return TrainStepOutput(loss.detach(),
+                               {k: v.detach() for k, v in aux.items()},
+                               metrics)
+    vals = mesh.mean(torch.stack([loss.detach()]
+                                 + [v.detach() for v in aux.values()]))
+    return TrainStepOutput(vals[0], dict(zip(aux, vals[1:])), metrics)
+
+
 def make_train_step(loss_cfg, num_classes: int,
                     schedule: Callable[[int], float],
                     compute_metrics: bool = True, compute_auc: bool = False,
-                    is_attention: bool = False):
+                    is_attention: bool = False, mesh: Optional[Mesh] = None):
     """The train step ``(state, images, labels, dropout_seed,
     distance_maps=None, device_augment=None) -> TrainStepOutput``: images
     ``(B, *spatial, C)``
@@ -115,7 +147,13 @@ def make_train_step(loss_cfg, num_classes: int,
 
     ``device_augment``: ``(flip_axes, noise_sigma)``: each sample flips
     (images, labels and distance maps with one coin) and the images get
-    Gaussian noise before the forward pass."""
+    Gaussian noise before the forward pass.
+
+    ``mesh``: a data-parallel mesh; the tensors are then the rank's rows
+    (``batch_rows``) of a global batch of ``B * mesh.data``, and the step
+    is that batch's: global batch statistics and dropout masks, the
+    augmentation's draws for the global batch sliced to the rank's rows,
+    gradients averaged over the ranks, global logged values."""
 
     def step_fn(state: TrainState, images, labels, dropout_seed: int,
                 distance_maps=None,
@@ -125,58 +163,67 @@ def make_train_step(loss_cfg, num_classes: int,
         if device_augment is not None:
             flip_axes, noise_sigma = device_augment
             gen = augment_generator(images.device, dropout_seed)
+            n = images.shape[0] * (1 if mesh is None else mesh.data)
+            lo, hi = (0, n) if mesh is None else batch_rows(mesh, n)
             if flip_axes:
-                coins = flip_coins(gen, images.shape[0], images.device)
+                coins = flip_coins(gen, n, images.device)[lo:hi]
                 images = flip_where(images, coins, flip_axes)
                 labels = flip_where(labels, coins, flip_axes)
                 if distance_maps is not None:
                     distance_maps = flip_where(distance_maps, coins,
                                                flip_axes)
             if noise_sigma > 0.0:
-                images = random_noise(gen, images, noise_sigma)
+                images = random_noise(gen, images, noise_sigma,
+                                      rows=(lo, hi, n))
         set_learning_rate(opt, schedule, state.step)  # pre-increment count
         opt.zero_grad(set_to_none=True)
-        out = net(images, dropout_seed=dropout_seed)
-        logits = out[0] if is_attention else out
-        loss, aux = segmentation_loss(
-            logits, labels, name=loss_cfg.name, num_classes=num_classes,
-            weights=loss_cfg.weights, alpha=loss_cfg.alpha)
-        if is_attention and distance_maps is not None:
-            att_loss = attention_distance_loss(
-                out[1], distance_maps, kind=loss_cfg.attention_kind,
-                scale=loss_cfg.attention_scale)
-            aux = dict(aux, attention_loss=att_loss)
-            loss = loss + att_loss
-            aux["total_loss"] = loss
-        loss.backward()
+        with data_parallel(mesh):
+            out = net(images, dropout_seed=dropout_seed)
+            logits = out[0] if is_attention else out
+            loss, aux = segmentation_loss(
+                logits, labels, name=loss_cfg.name, num_classes=num_classes,
+                weights=loss_cfg.weights, alpha=loss_cfg.alpha)
+            if is_attention and distance_maps is not None:
+                att_loss = attention_distance_loss(
+                    out[1], distance_maps, kind=loss_cfg.attention_kind,
+                    scale=loss_cfg.attention_scale)
+                aux = dict(aux, attention_loss=att_loss)
+                loss = loss + att_loss
+                aux["total_loss"] = loss
+            loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(net.parameters())
         opt.step()
         state.step += 1
         logits = logits.detach()
         metrics = (batch_metrics(logits, labels, num_classes,
-                                 compute_auc=compute_auc)
+                                 compute_auc=compute_auc,
+                                 reduce=None if mesh is None else mesh.sum)
                    if compute_metrics else {})
-        return TrainStepOutput(loss.detach(),
-                               {k: v.detach() for k, v in aux.items()},
-                               metrics)
+        return _global_output(mesh, loss, aux, metrics)
 
     return step_fn
 
 
 def make_eval_step(loss_cfg, num_classes: int, compute_auc: bool = False,
-                   is_attention: bool = False):
+                   is_attention: bool = False, mesh: Optional[Mesh] = None):
     """Loss and metrics of a test batch, updating nothing (an attention
-    network's first output and the segmentation loss only)."""
+    network's first output and the segmentation loss only); with ``mesh``,
+    of the global batch whose rows the ranks hold, batch statistics
+    (``Norm: batch_stats``) included."""
 
     def step_fn(state: TrainState, images, labels):
-        out = eval_apply(state.network, images)
+        with data_parallel(mesh):
+            out = eval_apply(state.network, images)
         logits = out[0] if is_attention else out
         with torch.inference_mode():
             loss, aux = segmentation_loss(
                 logits, labels, name=loss_cfg.name, num_classes=num_classes,
                 weights=loss_cfg.weights, alpha=loss_cfg.alpha)
-            metrics = batch_metrics(logits, labels, num_classes,
-                                    compute_auc=compute_auc)
-        return TrainStepOutput(loss, aux, metrics)
+            metrics = batch_metrics(
+                logits, labels, num_classes, compute_auc=compute_auc,
+                reduce=None if mesh is None else mesh.sum)
+            return _global_output(mesh, loss, aux, metrics)
 
     return step_fn
 
@@ -207,18 +254,34 @@ class TagLog:
         self._file.close()
 
 
-class Trainer:
-    """End-to-end training, configured like the JAX trainer."""
+def trainer_mesh(t, device="cuda") -> Mesh:
+    """The trainer's mesh in this process group (one rank without a
+    group): ``DcnDataParallel`` > 1 lays the data axis over nodes; else
+    ``DataParallel`` ranks, 0 for ``gcd(BatchSize, ranks)``."""
+    if t.mesh_dcn_parallel > 1:
+        return make_multislice_mesh(t.mesh_data_parallel,
+                                    t.mesh_dcn_parallel,
+                                    t.mesh_space_parallel, device)
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+    return make_mesh(data_parallel_size(t.batch_size, t.mesh_data_parallel,
+                                        world),
+                     t.mesh_space_parallel, device)
 
-    def __init__(self, config: Config, device="cuda", log: bool = True):
+
+class Trainer:
+    """End-to-end training, configured like the JAX trainer; data-parallel
+    over the ranks of ``mesh`` (by default :func:`trainer_mesh`)."""
+
+    def __init__(self, config: Config, device="cuda", log: bool = True,
+                 mesh: Optional[Mesh] = None):
         self.config = config
         self.t = t = config.train
-        self.device = resolve_device(device)
-        self.log_enabled = log
+        self.mesh = mesh if mesh is not None else trainer_mesh(t, device)
+        self.rows = batch_rows(self.mesh, t.batch_size)
+        self.device = self.mesh.device
+        self.log_enabled = log and self.mesh.rank == 0
         net_cfg = t.network
-        if t.mesh_space_parallel > 1 or t.mesh_dcn_parallel > 1:
-            raise NotImplementedError("multi-device meshes are not ported "
-                                      "yet (ROADMAP.md)")
         self.dtype = (torch.bfloat16 if t.precision == "bfloat16"
                       else torch.float32)
         name = "AttentionVNet" if net_cfg.attention else net_cfg.name
@@ -240,10 +303,12 @@ class Trainer:
             t.optimizer, self.network.parameters())
         self._train_step_fn = make_train_step(
             t.loss, t.num_classes, self.lr_schedule,
-            compute_auc=t.compute_auc, is_attention=self.is_attention)
+            compute_auc=t.compute_auc, is_attention=self.is_attention,
+            mesh=self.mesh)
         self._eval_step_fn = make_eval_step(t.loss, t.num_classes,
                                             compute_auc=t.compute_auc,
-                                            is_attention=self.is_attention)
+                                            is_attention=self.is_attention,
+                                            mesh=self.mesh)
         self._device_aug = None  # (flip_axes, noise_sigma) when enabled
         self._writers = {}
 
@@ -257,8 +322,9 @@ class Trainer:
 
     def train_step(self, state: TrainState, images, labels,
                    dropout_seed: int, distance_maps=None) -> TrainStepOutput:
-        """One step on host arrays; an attention network without distance
-        maps regresses its gate to zero maps, as the JAX trainer does."""
+        """One step on host arrays (the rank's rows of the global batch);
+        an attention network without distance maps regresses its gate to
+        zero maps, as the JAX trainer does."""
         if self.is_attention and distance_maps is None:
             distance_maps = np.zeros(np.shape(labels), np.float32)
         dmaps = (None if distance_maps is None
@@ -297,7 +363,8 @@ class Trainer:
                 cache_cases=t.cache_cases)
         return BatchLoader(ds, t.batch_size, shuffle=True,
                            drop_remainder=True, num_workers=t.loader_workers,
-                           backend=t.loader_backend, seed=t.seed)
+                           backend=t.loader_backend, seed=t.seed,
+                           rows=self.rows if self.mesh.parallel else None)
 
     def _extract_device_augment(self, transforms):
         """Take ``RandomFlip`` and ``RandomNoise`` out of the host chain;
@@ -359,7 +426,9 @@ class Trainer:
                          self.t.segmentation_classes, step)
 
     def _save(self, state: TrainState) -> None:
-        """A checkpoint, and the logs so far on disk beside it."""
+        """A checkpoint, and the logs so far on disk beside it (rank 0)."""
+        if self.mesh.rank != 0:
+            return
         checkpoints.save(self.t.ckpt_dir, state.network.state_dict(),
                          state.step, state.optimizer.state_dict(),
                          state.epoch)
@@ -392,28 +461,36 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train(self, max_steps: Optional[int] = None) -> TrainState:
-        t = self.t
-        if not t.restore:
-            for d in (t.log_dir, t.ckpt_dir):
-                if os.path.exists(d):
-                    shutil.rmtree(d)
-                os.makedirs(d, exist_ok=True)
+        t, mesh = self.t, self.mesh
+        if mesh.rank == 0:
+            if not t.restore:
+                for d in (t.log_dir, t.ckpt_dir):
+                    if os.path.exists(d):
+                        shutil.rmtree(d)
+                    os.makedirs(d, exist_ok=True)
+            self._write_network_sidecar(t.ckpt_dir)
+        mesh.barrier()  # no rank reads the directories before they are set
         state = self.init_state()
-        self._write_network_sidecar(t.ckpt_dir)
         if t.restore:
-            saved = checkpoints.restore_latest_state(t.ckpt_dir)
-            if saved is not None:
+            step = mesh.broadcast_object(
+                checkpoints.latest_step(t.ckpt_dir))
+            if step is not None:
+                saved = checkpoints.restore_state(t.ckpt_dir, step)
                 state.network.load_state_dict(saved["model"])
                 state.optimizer.load_state_dict(saved["optimizer"])
                 state.step, state.epoch = saved["step"], saved["epoch"]
-                print(f"Restored checkpoint at step {state.step}, "
-                      f"epoch {state.epoch}")
+                if mesh.rank == 0:
+                    print(f"Restored checkpoint at step {state.step}, "
+                          f"epoch {state.epoch}")
+        mesh.broadcast_module(state.network)
         try:
-            return self._train_loop(state, max_steps)
+            state = self._train_loop(state, max_steps)
         finally:
             for w in self._writers.values():
                 w.close()
             self._writers = {}
+        mesh.barrier()  # rank 0's last checkpoint is on disk
+        return state
 
     def _dropout_seeds(self, start_step: int):
         """Per-step dropout seeds from a generator seeded with ``Seed + 1``;
@@ -447,7 +524,9 @@ class Trainer:
             for images, labels, *rest in train_loader.epoch():
                 epoch_batches += 1
                 if state.step >= limit:
-                    print("Reach maximum iteration steps, training abort.")
+                    if self.mesh.rank == 0:
+                        print("Reach maximum iteration steps, training "
+                              "abort.")
                     self._save(state)
                     return state
                 scan_buf.append((images, labels, rest[0] if rest else None))
@@ -503,7 +582,7 @@ class Trainer:
             if pending is not None:
                 epoch_loss += self._log_scalars("train", *pending)
                 count += 1
-            if count:
+            if count and self.mesh.rank == 0:
                 print(f"Epoch {epoch + 1}: loss {epoch_loss / count:.4f} "
                       f"({count} steps, {time.time() - t0:.1f}s)")
             state.epoch += 1
