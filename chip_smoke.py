@@ -193,6 +193,31 @@ non-zero before the result line:
    blend kernel launched on each rank and every launch bitwise the plain
    slice-adds. (c), ``--devices 0`` under ``nccl`` at world size 1, is
    phase 7;
+21. (run after phase 20) the quickstart's main path:
+   ``vnet_tpu_torch.quickstart.main`` on ``cuda`` at the full-width 3D
+   network (16 channels, 4 levels, convolutions (1, 2, 3, 3), bottom 3,
+   dropout 0.01 ``xla``, ``PackedTargetLanes`` 128, bf16, 64^3, batch 8,
+   ``--augment`` on the device, RandomCrop drop 0.3 / min_pixel 32) for
+   ``QS_STEPS`` steps on ``QS_TRAIN`` generated 96x96x64 cases, then the
+   evaluation of its 4 held-out cases (stride 32^3, batch 4): the dropout
+   kernel launched twice per dropout layer per step (the module tree's 21
+   layers), the blend kernel once per patch batch of the evaluation, each
+   dropout and blend launch held bitwise against its plain version on the
+   same inputs (the blend on the float path its geometry implies), one
+   per-class Dice per case, each finite and in [0, 1], the result line
+   parsed, the device's idle share over a window of steps; then
+   ``--rank2 --small`` for a few steps: both evaluation modes' prediction
+   files written, blend launches once per slice-stacked batch, each held
+   bitwise against the plain slice-adds;
+22. (run after phase 21) the flag command lines:
+   ``vnet_tpu_torch.flags.train --attention --dropout_impl bits8
+   --device_augment`` for 2 steps at batch 2 and 32^3 on generated 48^3
+   cases (the flag CLI's full-width network), then
+   ``vnet_tpu_torch.flags.evaluate --attention`` on its checkpoint: the
+   dropout kernel launched twice per layer per step (backbone and heads),
+   each launch the bits8 flavour and bitwise its plain version on the same
+   input, a label per case in {0, 1}, blend launches once per patch batch,
+   each bitwise the plain slice-adds;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -217,6 +242,8 @@ and power limit, and the result line
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import os
 import shutil
@@ -284,6 +311,11 @@ EVAL_STRIDE_2D = (256, 256)  # config_2d.json's evaluation Stride
 # (b) and their tolerances are tools/dp_bench.py's
 DP_RANKS = 2
 DP_TIMEOUT = 420.0
+# phase 21: the quickstart at full width, cut to a few steps and cases
+QS_STEPS = 20
+QS_TRAIN = 16
+QS_IDLE_WINDOW = (10, 8)  # steps 11-18: after the first-call warm-up
+QS2D_STEPS = 4
 # (d): the same batches through the same kernels, the accumulators summed
 # across ranks in another order than one process adds them
 DP_PROB_ATOL = 1e-5
@@ -2457,6 +2489,258 @@ def phase_2d_shapes():
     return step_ms, peak, drop
 
 
+def _patch_batches(shape, patch, stride, batch) -> int:
+    """Patch batches of one case's sliding window (one blend launch each)."""
+    from vnet_tpu_torch.infer.sliding_window import build_patch_grid
+
+    n = len(build_patch_grid(shape, patch, stride))
+    return -(-n // batch)
+
+
+def _held_dropout(checked):
+    """A stand-in for the launch inside the counted dropout wrapper that the
+    layers call (forward and backward): the kernel, then the plain version
+    on the same input, key and counter base; appends ``(bitwise equal, max
+    abs err, shape, divide, thr)`` per launch."""
+    from vnet_tpu_torch.ops.dropout import dropout_plain, launch_with
+
+    def held(fn, x, seed, stream, thr, factor, divide, base=0):
+        out = launch_with(fn, x, seed, stream, thr, factor, divide, base)
+        ref = dropout_plain(x, seed, stream, thr, factor, divide, base)
+        checked.append((torch.equal(out, ref),
+                        (out.float() - ref.float()).abs().max().item(),
+                        tuple(x.shape), bool(divide), int(thr)))
+        return out
+
+    return held
+
+
+@contextlib.contextmanager
+def _holding():
+    """Every blend of the sliding window (``_held_blend``) and every
+    dropout of the layers (``_held_dropout``) held against its plain
+    version on the same inputs while the block runs; yields the two lists
+    of checks. The counted wrappers still launch, once a call."""
+    from vnet_tpu_torch.infer import sliding_window
+
+    # the module, not the function that vnet_tpu_torch.ops exports
+    ops_dropout = importlib.import_module("vnet_tpu_torch.ops.dropout")
+    blends, drops = [], []
+    blend, launch = (sliding_window.blend_accumulate_patches,
+                     ops_dropout.launch_with)
+    sliding_window.blend_accumulate_patches = _held_blend(blends)
+    ops_dropout.launch_with = _held_dropout(drops)
+    try:
+        yield blends, drops
+    finally:
+        sliding_window.blend_accumulate_patches = blend
+        ops_dropout.launch_with = launch
+
+
+def _check_held(tag, blends, drops, counts):
+    """Each launch of the block held, and each bitwise its plain version's;
+    the blends on the float path their geometry implies."""
+    say(f"[{tag}] held on the path: {len(blends)} blends, contrib shapes "
+        f"{sorted({c[4] for c in blends})}, bitwise "
+        f"{sum(c[0] for c in blends)}/{len(blends)}, widths taken "
+        f"{sorted({c[2] for c in blends})} (expected "
+        f"{sorted({c[3] for c in blends})}); {len(drops)} dropouts, shapes "
+        f"{sorted({c[2] for c in drops})}, flavours (divide, thr) "
+        f"{sorted({c[3:] for c in drops})}, bitwise "
+        f"{sum(c[0] for c in drops)}/{len(drops)}, max abs err "
+        f"{max((c[1] for c in blends + drops), default=0.0):.3e}")
+    check(len(blends) == counts["blend_accumulate"]
+          and len(drops) == counts["dropout"],
+          f"{len(blends)} blends and {len(drops)} dropouts held for "
+          f"launches {counts}")
+    check(all(c[0] for c in blends),
+          "a blend on the path differs from the plain slice-adds")
+    check(all(c[2] == c[3] for c in blends),
+          "a blend on the path took another float path than its geometry "
+          "implies")
+    check(all(c[0] for c in drops),
+          "a dropout on the path differs from its plain version")
+
+
+def _dice_ok(dice: dict) -> bool:
+    return all(len(d) == 3 and all(np.isfinite(d)) and
+               all(0.0 <= x <= 1.0 for x in d)
+               for mode in dice.values() for d in mode.values())
+
+
+def phase_quickstart(tmp):
+    """The quickstart's main path at full width on the card, then a few
+    steps of its 2D mode; ``(dropout launches, blend launches)``."""
+    from vnet_tpu_torch import quickstart
+    from vnet_tpu_torch.io import read_image
+    from vnet_tpu_torch.models import build_network
+
+    wd = os.path.join(tmp, "q3")
+    argv = ["--workdir", wd, "--steps", str(QS_STEPS), "--n-train",
+            str(QS_TRAIN), "--augment", "--drop-ratio", "0.3",
+            "--min-pixel", "32", "--seed", "1337", "--device", "cuda",
+            "--idle_window", *map(str, QS_IDLE_WINDOW)]
+    reset_counts()
+    t0 = time.perf_counter()
+    with _holding() as (held_blends, held_drops):
+        result = quickstart.main(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    out = result["quickstart"]
+    with open(os.path.join(wd, "config.json")) as f:
+        cfg = json.load(f)
+    ts, es = cfg["TrainingSetting"], cfg["EvaluationSetting"]
+    net = ts["Networks"]
+    n_dropout = len(build_network(
+        "VNet", num_classes=3, dropout_rate=net["Dropout"],
+        num_channels=net["NumChannel"], num_levels=net["NumLevels"],
+        num_convolutions=net["NumConvolutions"],
+        bottom_convolutions=net["BottomConvolutions"],
+        packed_target_lanes=net["PackedTargetLanes"], device="cpu").dropouts)
+    cases = sorted(os.listdir(os.path.join(wd, "evaluate")))
+    batches = len(cases) * _patch_batches(
+        (96, 96, 64), ts["PatchShape"], es["Stride"], es["BatchSize"])
+    say(f"[21] quickstart, full width: {out['steps']} steps at batch "
+        f"{out['batch']}, patch {out['patch']}, bf16, DeviceAugment "
+        f"{ts['DeviceAugment']}, in {wall:.2f} s (wall {out['wall']}); "
+        f"median step {out['median_step_ms']} ms; idle over steps "
+        f"{QS_IDLE_WINDOW[0] + 1}-{sum(QS_IDLE_WINDOW)}: {out['idle']}; "
+        f"dice {out['dice']}; launches {counts}; module tree: {n_dropout} "
+        f"dropout layers; {batches} patch batches over {len(cases)} cases")
+    check(out["steps"] == QS_STEPS and out["device"].startswith("cuda"),
+          f"quickstart ran {out['steps']} steps on {out['device']}")
+    check(ts["Precision"] == "bfloat16" and ts["BatchSize"] == 8
+          and ts["PatchShape"] == list(TRAIN_PATCH) and net["NumChannel"] == 16
+          and ts["DeviceAugment"], "not the full-width 3D recipe")
+    check(n_dropout == 21, f"{n_dropout} dropout layers")
+    check(counts["dropout"] == 2 * n_dropout * QS_STEPS,
+          f"dropout launches {counts['dropout']} != "
+          f"{2 * n_dropout * QS_STEPS}")
+    check(counts["blend_accumulate"] == batches,
+          f"blend launches {counts['blend_accumulate']} != {batches}")
+    check(sorted(out["dice"]) == ["network"]
+          and sorted(out["dice"]["network"]) == cases and _dice_ok(out["dice"]),
+          f"dice {out['dice']}")
+    check(out["median_step_ms"] is not None and out["median_step_ms"] > 0,
+          "no logged step time")
+    _check_held("21", held_blends, held_drops, counts)
+    drops, blends = counts["dropout"], counts["blend_accumulate"]
+
+    wd2 = os.path.join(tmp, "q2")
+    reset_counts()
+    t0 = time.perf_counter()
+    with _holding() as (held_blends, held_drops):
+        result = quickstart.main(["--workdir", wd2, "--steps",
+                                  str(QS2D_STEPS), "--rank2", "--small",
+                                  "--device", "cuda"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    out = result["quickstart"]
+    with open(os.path.join(wd2, "config.json")) as f:
+        es2 = json.load(f)["EvaluationSetting"]
+    cases = sorted(os.listdir(os.path.join(wd2, "evaluate")))
+    # slice-stacked: every z-slice of a 48x48x32 case is one 48^2 patch
+    batches = 2 * len(cases) * -(-32 // es2["BatchSize"])
+    preds = {}
+    for mode, name in quickstart.RANK2_MODES.items():
+        for case in cases:
+            path = os.path.join(wd2, "evaluate", case, name)
+            check(os.path.exists(path), f"{path} not written")
+            preds[mode, case] = np.asarray(read_image(path).data)
+    say(f"[21] quickstart --rank2 --small: {out['steps']} steps at batch "
+        f"{out['batch']} in {wall:.2f} s; dice {out['dice']}; launches "
+        f"{counts}; prediction files "
+        f"{sorted(quickstart.RANK2_MODES.values())} in each of {cases}")
+    check(out["steps"] == QS2D_STEPS, f"ran {out['steps']} steps")
+    check(sorted(out["dice"]) == ["batch_stats", "ema"]
+          and _dice_ok(out["dice"]), f"dice {out['dice']}")
+    check(all(p.shape == (48, 48, 32) for p in preds.values()),
+          "prediction shapes")
+    check(counts["blend_accumulate"] == batches,
+          f"2D blend launches {counts['blend_accumulate']} != {batches}")
+    _check_held("21", held_blends, held_drops, counts)
+    return drops, blends + counts["blend_accumulate"]
+
+
+def phase_flags(tmp):
+    """The flag command lines: an attention run, then its evaluation;
+    ``(dropout launches, blend launches)``."""
+    from vnet_tpu_torch.flags import evaluate as flags_evaluate
+    from vnet_tpu_torch.flags import train as flags_train
+    from vnet_tpu_torch.io import read_image
+    from vnet_tpu_torch.ops.dropout import dropout_params
+    from vnet_tpu_torch.utils.synthdata import make_hard_dataset
+
+    steps, patch, batch = 2, 32, 2
+    rng = np.random.default_rng(42)
+    make_hard_dataset(tmp, "training", 4, rng, shape=(48, 48, 48))
+    make_hard_dataset(tmp, "evaluate", 2, rng, shape=(48, 48, 48))
+    ckpt = os.path.join(tmp, "ckpt")
+    reset_counts()
+    t0 = time.perf_counter()
+    with _holding() as (_, held_drops):
+        state = flags_train.main([
+            "--attention", "--dropout_impl", "bits8", "--device_augment",
+            "--data_dir", tmp, "--batch_size", str(batch), "--patch_size",
+            str(patch), "--patch_layer", str(patch), "--max_iterations",
+            str(steps), "--optimizer", "adam", "--init_learning_rate",
+            "1e-3", "--loss_function", "sorensen", "--drop_ratio", "0.3",
+            "--min_pixel", "32", "--cache_cases", "64", "--log_dir",
+            os.path.join(tmp, "log"), "--checkpoint_dir", ckpt,
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    n_dropout = len(state.network.dropouts)
+    with open(os.path.join(ckpt, "network_config.json")) as f:
+        sidecar = json.load(f)
+    _check_held("22", [], held_drops, dict(train_counts, blend_accumulate=0))
+    bits8 = dropout_params(sidecar["Networks"]["Dropout"], "bits8")
+    check({c[3:] for c in held_drops} == {(bits8[2], bits8[0])},
+          "a dropout on the path is not the bits8 flavour")
+    reset_counts()
+    t0 = time.perf_counter()
+    with _holding() as (held_blends, _):
+        paths = flags_evaluate.main([
+            "--attention", "--data_dir", os.path.join(tmp, "evaluate"),
+            "--checkpoint_path", ckpt, "--patch_size", str(patch),
+            "--patch_layer", str(patch), "--stride_inplane",
+            str(patch // 2), "--stride_layer", str(patch // 2),
+            "--batch_size", "4", "--label_filename", "pred.nii.gz",
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+    _check_held("22", held_blends, [], dict(read_counts(), dropout=0))
+    eval_s = time.perf_counter() - t0
+    eval_counts = read_counts()
+    batches = len(paths) * _patch_batches((48, 48, 48), (patch,) * 3,
+                                          (patch // 2,) * 3, 4)
+    labels = [np.asarray(read_image(p).data) for p in paths]
+    say(f"[22] flags.train --attention --dropout_impl bits8: {state.step} "
+        f"steps at batch {batch}, {patch}^3, in {train_s:.2f} s; "
+        f"{type(state.network).__name__}, {n_dropout} dropout layers; "
+        f"sidecar Norm {sidecar['Networks']['Norm']}, DropoutImpl "
+        f"{sidecar['Networks']['DropoutImpl']}; launches {train_counts}; "
+        f"flags.evaluate: {len(paths)} cases in {eval_s:.2f} s, launches "
+        f"{eval_counts} ({batches} patch batches), label values "
+        f"{sorted(set(np.unique(np.concatenate([l.ravel() for l in labels]))))}")
+    check(state.step == steps, f"trained {state.step} steps")
+    check(type(state.network).__name__ == "AttentionGatedVNet",
+          "not the attention-gated network")
+    check(sidecar["Networks"]["DropoutImpl"] == "bits8"
+          and sidecar["Networks"]["Norm"] == "batch", f"sidecar {sidecar}")
+    check(train_counts["dropout"] == 2 * n_dropout * steps,
+          f"dropout launches {train_counts['dropout']} != "
+          f"{2 * n_dropout * steps}")
+    check(len(paths) == 2 and all(l.shape == (48, 48, 48) and
+                                  set(np.unique(l)) <= {0, 1}
+                                  for l in labels), "labels")
+    check(eval_counts["blend_accumulate"] == batches,
+          f"blend launches {eval_counts['blend_accumulate']} != {batches}")
+    return train_counts["dropout"], eval_counts["blend_accumulate"]
+
+
 def run():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2509,6 +2793,16 @@ def run():
         phase_data_parallel(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_quickstart_")
+    try:
+        qs_drops, qs_blends = phase_quickstart(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_flags_")
+    try:
+        fl_drops, fl_blends = phase_flags(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     drop_rows, drop_sums = phase_dropout_times()
 
     def timed(shape, impl):
@@ -2527,18 +2821,23 @@ def run():
         dict(name="blend_accumulate_patches", route="cuda",
              source="vnet_tpu_torch/csrc/blend_accumulate.cu",
              replaces="vnet_tpu/ops/pallas/fused.py:220",
-             launches=launches + blends_2d,
-             launches_in="phase 4 (3D evaluation) and phase 15 (2D "
-                         "evaluation, slice-stacked)",
+             launches=launches + blends_2d + qs_blends + fl_blends,
+             launches_in="phase 4 (3D evaluation), phase 15 (2D "
+                         "evaluation, slice-stacked), phase 21 (the "
+                         "quickstart's 3D and 2D evaluations) and phase 22 "
+                         "(flags.evaluate)",
              at_2d=dict(shape="10 x (1, 256, 256, 3) into (64, 384, 384, 3)",
                         **blend_2d), **blend),
         dict(name="pallas_dropout", route="cuda",
              source="vnet_tpu_torch/csrc/dropout.cu",
              replaces="vnet_tpu/ops/pallas/dropout.py:99",
-             launches=train_counts["dropout"] + att_drops + drops_2d,
+             launches=(train_counts["dropout"] + att_drops + drops_2d
+                       + qs_drops + fl_drops),
              launches_in="phase 7 (training, pallas flavour), phase 13 "
-                         "(attention step, xla flavour) and phase 15 (2D "
-                         "training, xla flavour)",
+                         "(attention step, xla flavour), phase 15 (2D "
+                         "training, xla flavour), phase 21 (the quickstart, "
+                         "xla flavour) and phase 22 (flags.train "
+                         "--attention, bits8 flavour)",
              times_are="xla flavour at (96, 128, 32, 32, 32) bf16: device "
                        "ms a launch, the median of a profiler trace "
                        "(event_ms: CUDA events around 50 launches; call_ms: "

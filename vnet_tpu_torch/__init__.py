@@ -20,6 +20,13 @@ unless ``conv_impl="direct"`` is asked for. Convolutions otherwise run
 through cuDNN, the packed network's strided ones as matrix products.
 Kernels are built with ``nvcc`` for ``sm_90a`` at first use
 (``ops/build.py``).
+
+Beside the main command line: the quickstart (``python -m
+vnet_tpu_torch.quickstart``: synthetic data, training, evaluation, Dice),
+the legacy flag command lines (``flags.train``, ``flags.evaluate``), the
+attention quality run (``experiments.attn_quality``) and the host
+utilities (``utils.batch_evaluate``, ``utils.bbox``,
+``utils.prepare_data``), each the counterpart of a JAX-package script.
 """
 
 __version__ = "0.2.0"

@@ -92,10 +92,10 @@ def _run(args):
             print(f"trace written to {profiler.path}")
 
 
-def _ranks(args, batch_size: int) -> int:
-    """Local ranks to launch: ``--devices``, or for 0 every visible card
-    (training: the largest count that divides the batch) and one CPU
-    process."""
+def _ranks(args, t) -> int:
+    """Local ranks to launch for the training settings ``t``:
+    ``--devices``, or for 0 one CPU process and, on the cards, every card
+    (evaluation) or the trainer's data axis (training)."""
     import torch
 
     from .device import resolve_device
@@ -112,12 +112,19 @@ def _ranks(args, batch_size: int) -> int:
                              f"r: pass --device cuda, not {args.device}")
         return 1
     cards = torch.cuda.device_count()
-    if args.devices > cards:
-        raise ValueError(f"--devices {args.devices} needs {args.devices} "
-                         f"cards, torch sees {cards}")
     if args.devices or args.phase != "train":
-        return args.devices or cards
-    return data_parallel_size(batch_size, 0, cards)
+        want, source = args.devices or cards, "--devices"
+    elif t.mesh_dcn_parallel > 1:
+        # JAX's multi-slice mesh takes every device: here the node's cards
+        want = t.mesh_data_parallel or cards
+        source = "Mesh.DataParallel"
+    else:
+        want = data_parallel_size(t.batch_size, t.mesh_data_parallel, cards)
+        source = "Mesh.DataParallel"
+    if want > cards:
+        raise ValueError(f"{source} {want} needs {want} cards, torch sees "
+                         f"{cards}")
+    return want
 
 
 def main(argv=None):
@@ -127,8 +134,9 @@ def main(argv=None):
     from .config import load_config
     from .parallel.mesh import launch, under_torchrun
 
-    batch = load_config(args.config_json).train.batch_size
-    ranks = _ranks(args, batch)
+    t = load_config(args.config_json).train
+    batch = t.batch_size
+    ranks = _ranks(args, t)
     if args.phase == "train" and batch % ranks:
         raise ValueError(f"--devices {ranks}: a batch of {batch} does not "
                          f"split over {ranks} data-parallel ranks")

@@ -3,7 +3,8 @@
 ``TraceCapture`` records a ``torch.profiler`` trace (host operators, and
 the card's kernels and copies when the device is CUDA) and writes it as a
 Chrome trace JSON into its directory (viewable in Perfetto or
-``chrome://tracing``), as ``jax.profiler`` traces a phase of the JAX CLI.
+``chrome://tracing``), as ``jax.profiler`` traces a phase of the JAX CLI;
+or, over a window of training steps, the device's idle share.
 
 ``StepTimer``: host clock around each step; on the card the caller
 synchronises inside the timed block (``Trainer`` reads the step's loss
@@ -13,9 +14,10 @@ there), so a time is the step's, not its enqueue's.
 from __future__ import annotations
 
 import os
+import statistics
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -23,26 +25,104 @@ import torch
 class TraceCapture:
     """``start()`` / ``stop()`` or a ``with`` block around the work to
     trace; ``stop()`` writes ``trace_<secs>_<pid>.json`` into ``log_dir``
-    and keeps its path in ``path``."""
+    and keeps its path in ``path``.
 
-    def __init__(self, log_dir: str, device="cpu"):
+    ``steps=(start, count)`` traces a window of a loop that calls ``step()``
+    after each of its steps (``Trainer(trace=...)`` does): the card's
+    kernels alone (no host operators, so the host-bound steps it watches
+    stretch less) over steps ``start + 1`` to ``start + count`` and all
+    between them, the loader's waits included, behind one step of profiler
+    warm-up. ``step()`` also stamps the host clock, so ``reading`` (None on
+    the CPU, or until the window closed) holds, in ms: the window's
+    ``span_ms`` on the host clock, the device's ``busy_ms`` in it and its
+    ``idle`` share; its ``step_ms`` (span / count) beside the
+    ``unprofiled_step_ms`` (the median step of the loop outside the window,
+    the first two steps, the warm-up and the step after the window left
+    out), whose difference is the profiler's own cost; and
+    ``idle_unprofiled``, the share of the unprofiled step that the window's
+    device time a step leaves idle. ``log_dir`` None writes no file."""
+
+    def __init__(self, log_dir: Optional[str], device="cpu",
+                 steps: Optional[Tuple[int, int]] = None):
         self.log_dir = log_dir
         self.device = torch.device(device)
+        self.steps = steps
         self.path: Optional[str] = None
         self._prof = None
+        self._stamps: List[float] = []
+        self._window: Optional[Tuple[float, float]] = None
+        self._open = 0.0
 
     def start(self):
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        self._prof = torch.profiler.profile(activities=acts)
+        if self.steps is None:
+            self._prof = torch.profiler.profile(activities=acts)
+        else:
+            self._stamps, self._window = [time.perf_counter()], None
+            if self.device.type != "cuda":
+                return
+            first, count = self.steps
+            self._prof = torch.profiler.profile(
+                activities=acts[1:], on_trace_ready=self._window_done,
+                schedule=torch.profiler.schedule(
+                    wait=max(0, first - 1), warmup=min(1, first),
+                    active=count, repeat=1))
         self._prof.start()
+        if self.steps is not None and self.steps[0] == 0:
+            self._open = time.perf_counter()  # recording from the start
+
+    def step(self):
+        """The end of one step of the loop a window watches."""
+        if self.steps is None:
+            return
+        self._stamps.append(time.perf_counter())
+        if self._prof is not None:
+            self._prof.step()
+            if len(self._stamps) == self.steps[0] + 1:  # it opened here
+                self._open = time.perf_counter()
+
+    def _window_done(self, prof):
+        first, count = self.steps
+        if len(self._stamps) <= first + count:
+            return  # the loop ended inside the window: no reading
+        _, busy = device_busy(prof)
+        span = 1e3 * (self._stamps[first + count] - self._open)
+        self._window = (span, busy)
+        self._export(prof)
+
+    @property
+    def reading(self) -> Optional[dict]:
+        if self._window is None or self._window[1] <= 0:
+            return None
+        span, busy = self._window
+        first, count = self.steps
+        skip = range(first, first + count + 2)  # warm-up .. step after
+        outside = [1e3 * (b - a) for i, (a, b) in enumerate(
+            zip(self._stamps, self._stamps[1:]), 1)
+            if i > 2 and i not in skip]
+        out = {"steps": count, "first_step": first + 1, "span_ms": span,
+               "busy_ms": busy, "idle": 1 - busy / span,
+               "step_ms": span / count, "unprofiled_step_ms": None,
+               "idle_unprofiled": None}
+        if outside:
+            step = statistics.median(outside)
+            out.update(unprofiled_step_ms=step,
+                       idle_unprofiled=1 - busy / count / step)
+        return out
 
     def stop(self):
         if self._prof is None:
             return
         prof, self._prof = self._prof, None
         prof.stop()
+        if self.steps is None:
+            self._export(prof)
+
+    def _export(self, prof):
+        if self.log_dir is None:
+            return
         os.makedirs(self.log_dir, exist_ok=True)
         self.path = os.path.join(
             self.log_dir, f"trace_{int(time.time())}_{os.getpid()}.json")
@@ -89,3 +169,29 @@ class StepTimer:
 
     def throughput(self, items_per_step: int) -> float:
         return items_per_step / self.mean if self.times else float("nan")
+
+
+def device_busy(prof) -> Tuple[float, float]:
+    """``(span_ms, busy_ms)`` of a ``torch.profiler`` run: the span from its
+    first host event to its last device event, and the union of its device
+    events' intervals (the device's idle share is ``1 - busy / span``)."""
+    device, host_start = [], float("inf")
+    for e in prof.events():
+        start, end = e.time_range.start, e.time_range.end
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device.append((start, end))
+        else:
+            host_start = min(host_start, start)
+    if not device:
+        return float("nan"), 0.0
+    device.sort()
+    busy, (cur_s, cur_e) = 0.0, device[0]
+    for s, e in device[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = max(e for _, e in device) - min(host_start, device[0][0])
+    return span / 1e3, busy / 1e3

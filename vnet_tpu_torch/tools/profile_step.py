@@ -49,6 +49,7 @@ import torch
 from ..config import LossConfig, OptimizerConfig
 from ..models import build_network
 from ..parallel.mesh import batch_rows
+from ..profiler import device_busy
 from ..train import TrainState, make_train_step
 from ..train.optim import build_optimizer
 
@@ -236,31 +237,15 @@ def group_of(name: str) -> str:
 
 def breakdown(prof):
     """``(span_ms, busy_ms, {group: ms}, {kernel name: (ms, count)})``."""
-    device, host_start = [], None
-    for e in prof.events():
-        start, end = e.time_range.start, e.time_range.end
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device.append((start, end, e.name))
-        elif host_start is None or start < host_start:
-            host_start = start
-    device.sort()
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e, _ in device:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    span = max(e for _, e, _ in device) - min(host_start, device[0][0])
+    span, busy = device_busy(prof)
     groups, kernels = defaultdict(float), defaultdict(lambda: [0.0, 0])
-    for s, e, name in device:
-        groups[group_of(name)] += (e - s) / 1e3
-        kernels[name][0] += (e - s) / 1e3
-        kernels[name][1] += 1
-    return span / 1e3, busy / 1e3, dict(groups), dict(kernels)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            groups[group_of(e.name)] += ms
+            kernels[e.name][0] += ms
+            kernels[e.name][1] += 1
+    return span, busy, dict(groups), dict(kernels)
 
 
 def find_ops(prof, fragment: str):

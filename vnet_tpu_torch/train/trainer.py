@@ -39,7 +39,9 @@ Logs: each tag directory ``LogDir/<tag>/`` gets a TensorBoard events file
 (``train/events.py``; the JAX trainer's tags) and ``scalars.jsonl`` (one
 JSON object per value: ``tag``, ``step``, ``value``). ``ImageLog`` adds the
 input, label, softmax and prediction images at every ``LogInterval``
-checkpoint and every test step.
+checkpoint and every test step. ``trace=TraceCapture(..., steps=(start,
+count))`` profiles a window of the loop's steps: the loop calls its
+``step()`` after each step (a ``ScanSteps`` block counts as one).
 
 Data parallelism (``parallel/mesh.py``), run inside a process group, one
 process a GPU: the data axis takes ``Mesh.DataParallel`` ranks, or for 0
@@ -82,7 +84,7 @@ from ..ops.metrics import batch_metrics
 from ..parallel.mesh import (Mesh, batch_rows, data_parallel,
                              data_parallel_size, make_mesh,
                              make_multislice_mesh)
-from ..profiler import StepTimer
+from ..profiler import StepTimer, TraceCapture
 from . import checkpoints
 from .events import EventWriter
 from .images import log_batch_images
@@ -274,8 +276,10 @@ class Trainer:
     over the ranks of ``mesh`` (by default :func:`trainer_mesh`)."""
 
     def __init__(self, config: Config, device="cuda", log: bool = True,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 trace: Optional[TraceCapture] = None):
         self.config = config
+        self.trace = trace
         self.t = t = config.train
         self.mesh = mesh if mesh is not None else trainer_mesh(t, device)
         self.rows = batch_rows(self.mesh, t.batch_size)
@@ -483,9 +487,13 @@ class Trainer:
                     print(f"Restored checkpoint at step {state.step}, "
                           f"epoch {state.epoch}")
         mesh.broadcast_module(state.network)
+        if self.trace is not None:
+            self.trace.start()
         try:
             state = self._train_loop(state, max_steps)
         finally:
+            if self.trace is not None:
+                self.trace.stop()
             for w in self._writers.values():
                 w.close()
             self._writers = {}
@@ -536,6 +544,8 @@ class Trainer:
                     outs = [self.train_step(state, im, lb, next(seeds), dm)
                             for im, lb, dm in scan_buf]
                     self._sync()
+                if self.trace is not None:
+                    self.trace.step()
                 scan_buf = []
                 for i, out in enumerate(outs):
                     if pending is not None:
