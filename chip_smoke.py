@@ -218,6 +218,24 @@ non-zero before the result line:
    each launch the bits8 flavour and bitwise its plain version on the same
    input, a label per case in {0, 1}, blend launches once per patch batch,
    each bitwise the plain slice-adds;
+23. (run after phase 20) spatial partitioning, two ``gloo`` ranks sharing
+   the card at ``SpaceParallel`` 2 (halos staged through host memory):
+   (a) the float32 full-width packed flagship trainer step (16 channels,
+   4 levels, (1, 2, 3, 3), bottom 3, dropout 0.01 ``pallas``) at 64^3,
+   batch 2, each rank a 32x64x64 slab of every patch, against one process
+   (``tools/sp_bench.py``: loss, gradients, running averages and the
+   parameters after Adam held as phase 20 holds them, the gradients to
+   ``sp_bench.GRAD_RTOL`` and no farther from the float64 step on the
+   host's CPU than the one process's; every dropout mask joined over the
+   slabs bitwise the one process's, every dropout launch of the ranks held
+   bitwise against ``dropout_plain`` with its row map);
+   (b) the bf16 step at batch ``SP_BATCH``: its first step with every
+   dropout launch held as in (a) at the slab shapes and row maps the
+   flagship's inputs give, then median ms and peak memory a rank, halo
+   exchanges a step; the launches counted from before (a) to after (c);
+   (c) ``spatial_sharded_forward`` of one
+   384x384x64 volume at ``config_eval_gaussian.json``'s network, float32
+   with TF32 off, against the unsharded forward;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -320,6 +338,16 @@ QS2D_STEPS = 4
 # across ranks in another order than one process adds them
 DP_PROB_ATOL = 1e-5
 DP_LABEL_GAP = 1e-4
+# phase 23: two gloo ranks on the one card at SpaceParallel 2; (a)'s
+# tolerances are tools/dp_bench.py's (phase 20's), (b)'s batch is cut from
+# 96 so the halos staged through host memory keep the phase short
+SP_RANKS = 2
+SP_BATCH = 16
+SP_TIMEOUT = 420.0
+# (c): the same float32 convolutions on slabs with halos against the whole
+# volume, cuDNN free to pick other algorithms for the other shapes; allowed
+# max |diff| relative to the largest logit
+SP_FORWARD_RTOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2052,6 +2080,160 @@ def phase_data_parallel(tmp):
     return ranks
 
 
+# ----------------------------------------------------------------------
+# phase 23: spatial partitioning, two gloo ranks on the one card
+# ----------------------------------------------------------------------
+def _eval_network():
+    """``config_eval_gaussian.json``'s network (packed, as the evaluator
+    builds it), weights from ``SEED``, float32 on the card."""
+    from vnet_tpu_torch.config import load_config
+    from vnet_tpu_torch.models import build_network
+
+    t = load_config(EVAL_CONFIG).train
+    n = t.network
+    return build_network(
+        "VNet", num_classes=t.num_classes, num_channels=n.num_channel,
+        num_levels=n.num_levels, num_convolutions=n.num_convolutions,
+        bottom_convolutions=n.bottom_convolutions, norm=n.norm,
+        dropout_rate=n.dropout, device="cuda",
+        generator=torch.Generator().manual_seed(SEED))
+
+
+def _sp_volume():
+    return np.random.default_rng(SEED).normal(
+        size=SLICE_VOLUME + (1,)).astype(np.float32)
+
+
+def _sp_rank(tmp):
+    """Phase 23 on one of two ``gloo`` ranks sharing card 0."""
+    from vnet_tpu_torch.parallel import make_mesh
+    from vnet_tpu_torch.parallel.spatial import spatial_sharded_forward
+    from vnet_tpu_torch.tools import sp_bench
+
+    mesh = make_mesh(data_parallel=1, space_parallel=SP_RANKS,
+                     device="cuda:0")
+    out = {"rank": mesh.rank, "world": mesh.world_size,
+           "grid": (mesh.data_index, mesh.space_index)}
+    reset_counts()  # read after (c): every launch of the ranks' run
+    with _holding() as (blends, drops):
+        a = sp_bench.train_check(mesh, mesh.device)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    flat = torch.cat([v.float().reshape(-1) for v in a["state"].values()]
+                     ).to(mesh.device)
+    ref = flat.clone()
+    torch.distributed.broadcast(ref, 0)
+    a["ranks_equal"] = bool(torch.equal(ref, flat))
+    if mesh.rank:
+        del a["grads"], a["state"]
+    out["train"] = a
+    out["held"] = (blends, drops, counts)
+    torch.cuda.empty_cache()
+    held_b = []
+    out["timing"] = [sp_bench.step_timing(mesh, mesh.device, SP_BATCH,
+                                          hold=_held_step(held_b))]
+    out["held_b"] = held_b[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        logits = spatial_sharded_forward(_eval_network(), _sp_volume(), mesh)
+        torch.cuda.synchronize()
+        out["forward_s"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    if mesh.rank == 0:
+        out["logits"] = logits.cpu().numpy()
+    out["counts"] = read_counts()
+    torch.save(out, os.path.join(tmp, f"sp_rank{mesh.rank}.pt"))
+
+
+def phase_spatial(tmp):
+    """Phase 23: two ``gloo`` ranks on the one card at ``SpaceParallel`` 2
+    against one process: (a) the float32 flagship step, (b) the bf16 step,
+    (c) the halo-sharded forward of one whole volume. Returns the ranks'
+    dropout launches in (a) and (b)."""
+    from vnet_tpu_torch.models import eval_apply
+    from vnet_tpu_torch.parallel import launch
+    from vnet_tpu_torch.tools import dropout_bench, sp_bench
+
+    t0 = time.perf_counter()
+    ref_a = sp_bench.train_check()
+    exact_a = sp_bench.exact_check()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref_c = eval_apply(_eval_network(), torch.from_numpy(
+            _sp_volume()).cuda()[None])[0].cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launch(_sp_rank, SP_RANKS, backend="gloo", device="cuda:0",
+           init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+           args=(tmp,), timeout=SP_TIMEOUT)
+    ranks = [torch.load(os.path.join(tmp, f"sp_rank{r}.pt"),
+                        weights_only=False) for r in range(SP_RANKS)]
+    say(f"[23] one process {ref_s:.1f} s; {SP_RANKS} gloo ranks on card 0 "
+        f"{time.perf_counter() - t0:.1f} s (spawn, import, build included)")
+    check([r["grid"] for r in ranks] == [(0, s) for s in range(SP_RANKS)],
+          "ranks did not form one data row of two space ranks")
+
+    # (a) the ranks' float32 step is the single process's, masks joined
+    failed = sp_bench.report_train(ref_a, exact_a, ranks, "[23a]")
+    check(not failed, "; ".join(failed))
+    for r in ranks:
+        blends, drops, counts = r["held"]
+        maps = sorted({c[5] for c in drops})
+        say(f"[23a] rank {r['rank']} row maps (L, G) of its dropout "
+            f"launches: {maps}")
+        check(all(0 < g == SP_RANKS * l for l, g in maps),
+              f"rank {r['rank']} launched dropout without a slab's row map")
+        _check_held(f"23a rank {r['rank']}", blends, drops, counts)
+    # (b) a functional reading, both ranks on one card, its first step held
+    failed = sp_bench.report_timing(ranks, "[23b]")
+    check(not failed, "; ".join(failed))
+    steps_b = sp_bench.STEPS + 2  # held, warm-up, timed; (c) launches none
+    # the flagship's dropout inputs at SP_BATCH, each rank's slab of them
+    # under its row map (L, G)
+    slabs = {(slab, tuple(row_map[1:])) for slab, row_map in (
+        dropout_bench.slab_map(s, SP_RANKS)
+        for s, _ in dropout_bench.dropout_shapes("flagship",
+                                                 batch=SP_BATCH))}
+    for r in ranks:
+        t = r["timing"][0]
+        check(t["per_step"]["dropout"] == 2 * 21,
+              f"[23b] dropout launches a step {t['per_step']}")
+        blends, drops, counts = r["held_b"]
+        check({(c[2], c[5]) for c in drops} == slabs,
+              f"[23b] rank {r['rank']} held shapes and row maps "
+              f"{sorted({(c[2], c[5]) for c in drops})}, not {slabs}")
+        _check_held(f"23b rank {r['rank']}", blends, drops, counts)
+        check(r["counts"]["dropout"] == 2 * 21 * (1 + steps_b),
+              f"[23] rank {r['rank']} launched dropout "
+              f"{r['counts']['dropout']} times in (a), (b) and (c), not "
+              f"{2 * 21 * (1 + steps_b)}")
+    # (c) the halo-sharded forward of one whole volume against one process
+    err = float(np.abs(ranks[0]["logits"] - ref_c).max())
+    scale = float(np.abs(ref_c).max())
+    say(f"[23c] spatial_sharded_forward of one {SLICE_VOLUME} volume at "
+        f"config_eval_gaussian.json's network, f32 TF32 off, {SP_RANKS} "
+        f"slabs of the first axis vs the unsharded forward: max |diff| "
+        f"{err:.3e} of max |logit| {scale:.3e} (tolerance "
+        f"{SP_FORWARD_RTOL:g} relative); forward "
+        f"{[round(r['forward_s'], 2) for r in ranks]} s a rank")
+    check(ranks[0]["logits"].shape == ref_c.shape
+          and np.isfinite(ranks[0]["logits"]).all(),
+          f"sharded logits {ranks[0]['logits'].shape} vs {ref_c.shape}")
+    check(err <= SP_FORWARD_RTOL * scale,
+          f"sharded forward off by {err} (max |logit| {scale})")
+    return sum(r["counts"]["dropout"] for r in ranks)
+
+
 def _two_modality_case(rng):
     img, label = _train_case(rng)
     t2 = (200.0 - img + rng.normal(0.0, 5.0, size=img.shape)).astype(
@@ -2500,19 +2682,34 @@ def _patch_batches(shape, patch, stride, batch) -> int:
 def _held_dropout(checked):
     """A stand-in for the launch inside the counted dropout wrapper that the
     layers call (forward and backward): the kernel, then the plain version
-    on the same input, key and counter base; appends ``(bitwise equal, max
-    abs err, shape, divide, thr)`` per launch."""
+    on the same input, key, counter base and row map; appends ``(bitwise
+    equal, max abs err, shape, divide, thr, row map)`` per launch."""
     from vnet_tpu_torch.ops.dropout import dropout_plain, launch_with
 
-    def held(fn, x, seed, stream, thr, factor, divide, base=0):
-        out = launch_with(fn, x, seed, stream, thr, factor, divide, base)
-        ref = dropout_plain(x, seed, stream, thr, factor, divide, base)
+    def held(fn, x, seed, stream, thr, factor, divide, base=0, row_len=0,
+             row_stride=0):
+        key = (seed, stream, thr, factor, divide, base, row_len, row_stride)
+        out = launch_with(fn, x, *key)
+        ref = dropout_plain(x, *key)
         checked.append((torch.equal(out, ref),
                         (out.float() - ref.float()).abs().max().item(),
-                        tuple(x.shape), bool(divide), int(thr)))
+                        tuple(x.shape), bool(divide), int(thr),
+                        (int(row_len), int(row_stride))))
         return out
 
     return held
+
+
+@contextlib.contextmanager
+def _held_step(held):
+    """``_holding`` around a block, which appends ``(blends, drops,
+    launches in the block)`` to ``held``."""
+    before = read_counts()
+    with _holding() as (blends, drops):
+        yield
+        torch.cuda.synchronize()
+    held.append((blends, drops, {k: v - before[k]
+                                 for k, v in read_counts().items()}))
 
 
 @contextlib.contextmanager
@@ -2545,7 +2742,7 @@ def _check_held(tag, blends, drops, counts):
         f"{sum(c[0] for c in blends)}/{len(blends)}, widths taken "
         f"{sorted({c[2] for c in blends})} (expected "
         f"{sorted({c[3] for c in blends})}); {len(drops)} dropouts, shapes "
-        f"{sorted({c[2] for c in drops})}, flavours (divide, thr) "
+        f"{sorted({c[2] for c in drops})}, flavours (divide, thr, row map) "
         f"{sorted({c[3:] for c in drops})}, bitwise "
         f"{sum(c[0] for c in drops)}/{len(drops)}, max abs err "
         f"{max((c[1] for c in blends + drops), default=0.0):.3e}")
@@ -2698,7 +2895,7 @@ def phase_flags(tmp):
         sidecar = json.load(f)
     _check_held("22", [], held_drops, dict(train_counts, blend_accumulate=0))
     bits8 = dropout_params(sidecar["Networks"]["Dropout"], "bits8")
-    check({c[3:] for c in held_drops} == {(bits8[2], bits8[0])},
+    check({c[3:5] for c in held_drops} == {(bits8[2], bits8[0])},
           "a dropout on the path is not the bits8 flavour")
     reset_counts()
     t0 = time.perf_counter()
@@ -2793,6 +2990,11 @@ def run():
         phase_data_parallel(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_sp_")
+    try:
+        sp_drops = phase_spatial(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_quickstart_")
     try:
         qs_drops, qs_blends = phase_quickstart(tmp)
@@ -2832,10 +3034,12 @@ def run():
              source="vnet_tpu_torch/csrc/dropout.cu",
              replaces="vnet_tpu/ops/pallas/dropout.py:99",
              launches=(train_counts["dropout"] + att_drops + drops_2d
-                       + qs_drops + fl_drops),
+                       + sp_drops + qs_drops + fl_drops),
              launches_in="phase 7 (training, pallas flavour), phase 13 "
                          "(attention step, xla flavour), phase 15 (2D "
-                         "training, xla flavour), phase 21 (the quickstart, "
+                         "training, xla flavour), phase 23 (the spatially "
+                         "partitioned step on two ranks, pallas flavour, "
+                         "row-mapped), phase 21 (the quickstart, "
                          "xla flavour) and phase 22 (flags.train "
                          "--attention, bits8 flavour)",
              times_are="xla flavour at (96, 128, 32, 32, 32) bf16: device "

@@ -139,3 +139,37 @@ def test_kernel_with_a_counter_base_equals_plain_on_card(base, dtype,
         assert torch.equal(out_k, out_p), (impl, base)
         assert base == 0 or not torch.equal(
             out_k != 0, dropout_apply(x, 41, 6, *params) != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape,space", [
+    ((2, 16, 8, 8, 8), 2),    # L % 8 == 0: every vector inside one row
+    ((3, 4, 12, 3, 1), 4),    # L = 36: a 16-bit vector opens a new row
+    ((2, 3, 10, 3, 3), 2),    # L = 135: odd, the scalar loop only
+])
+def test_kernel_row_map_equals_plain_and_the_global_slab(shape, space, dtype,
+                                                         cuda_device):
+    """The row-mapped kernel (``L < G``: a space rank's slab of the first
+    spatial axis) against its plain version, bitwise, for both multiply and
+    divide; joined over the slabs, the whole tensor's mask from the
+    contiguous kernel, bitwise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = (torch.randn(shape, generator=gen, device=cuda_device)
+         * 30.0).to(dtype).contiguous(memory_format=torch.channels_last_3d)
+    per = shape[2] // space
+    for impl in ("pallas", "xla"):
+        params = dropout_params(0.3, impl)
+        whole = dropout_apply(x, 9, 3, *params, base=64)
+        for s in range(space):
+            slab = x[:, :, s * per:(s + 1) * per]
+            row_len = slab[0].numel()
+            key = (9, 3, *params, 64 + s * row_len, row_len,
+                   row_len * space)
+            out_k = dropout_apply(slab, *key)
+            out_p = dropout_plain(slab, *key)
+            torch.cuda.synchronize()
+            assert torch.equal(out_k, out_p), (impl, s)
+            assert torch.equal(out_k, whole[:, :, s * per:(s + 1) * per]), (
+                impl, s)

@@ -104,6 +104,27 @@ def test_bound_and_floor():
         8 * 256 * 64 * 2 / 3.35e12 * 1e3)
 
 
+@pytest.mark.parametrize("shape", [s for s, _ in FLAGSHIP])
+def test_slab_map_is_a_space_ranks_slab_of_the_global_mask(shape):
+    """``--space 2`` times space rank 1's slab of each flagship shape under
+    the row map ``slab_map`` gives it: on the CPU, the plain version at that
+    map is that slab of the unsharded mask (channels-last storage, so the
+    first spatial axis is the logical dim 2)."""
+    small = (2, 4) + shape[2:]  # the map reads its dims the same at any B, C
+    slab, (base, row_len, row_stride) = dropout_bench.slab_map(small, 2)
+    assert slab == small[:2] + (small[2] // 2,) + small[3:]
+    assert (row_len, row_stride) == (math.prod(slab[1:]),
+                                     math.prod(small[1:]))
+    assert base == row_len
+    params = dropout_ops.dropout_params(0.5, "pallas")
+    x = torch.ones(small).contiguous(memory_format=torch.channels_last_3d)
+    whole = dropout_ops.dropout_plain(x, 7, 3, *params)
+    part = dropout_ops.dropout_plain(
+        x[:, :, slab[2]:].contiguous(memory_format=torch.channels_last_3d),
+        7, 3, *params, base, row_len, row_stride)
+    assert torch.equal(part, whole[:, :, slab[2]:])
+
+
 def test_span_median_drops_spans_that_cannot_be_right():
     """Truncated spans under the floor are dropped, not averaged in, and
     the median is never taken again for its value: too few spans left, or
@@ -179,8 +200,9 @@ def test_check_events_fails_where_the_input_fills_the_l2():
 
 
 def test_kernel_registers_reads_each_instantiation():
-    """nvcc's ptxas log names each dropout_kernel<T, DIV> with its
-    registers; other kernels and the lines between are passed over."""
+    """nvcc's ptxas log names each dropout_kernel<T, DIV> (and, with the
+    row-walk flag, <T, DIV, ROWS>) with its registers; other kernels and
+    the lines between are passed over."""
     log = """ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114dropout_kernelI13__nv_bfloat16Lb1EEEvPKT_PS2_xxNS_6ParamsE' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_114dropout_kernelI13__nv_bfloat16Lb1EEEvPKT_PS2_xxNS_6ParamsE
@@ -192,9 +214,14 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114dropout_kernelIfLb0
 ptxas info    : Used 36 registers, used 0 barriers
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114dropout_kernelI6__halfLb1EEEvPKT_PS2_xxNS_6ParamsE' for 'sm_90a'
 ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114dropout_kernelI13__nv_bfloat16Lb1ELb1EEEvPKT_PS2_xxxxxxxNS_6ParamsE' for 'sm_90a'
+ptxas info    : Used 42 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114dropout_kernelIfLb0ELb0EEEvPKT_PS1_xxxxxxxNS_6ParamsE' for 'sm_90a'
+ptxas info    : Used 44 registers, used 0 barriers
 """
     assert dropout_bench.kernel_registers(log) == [
-        ("bf16 divide", 46), ("f32 multiply", 36), ("f16 divide", 40)]
+        ("bf16 divide", 46), ("f32 multiply", 36), ("f16 divide", 40),
+        ("bf16 divide rows", 42), ("f32 multiply", 44)]
     assert dropout_bench.kernel_registers("") == []
 
 

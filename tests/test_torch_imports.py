@@ -23,16 +23,19 @@ PORT_MODULES = sorted(
     for p in (ROOT / "vnet_tpu_torch").rglob("*.py")) + ["chip_smoke"]
 CUDA_TESTS = sorted(str(p.relative_to(ROOT)) for p in
                     (ROOT / "tests").glob("test_torch_cuda_*.py"))
+RANK_MODULES = sorted(str(p.relative_to(ROOT)) for p in
+                      (ROOT / "tests").glob("torch_*_ranks.py"))
 PORT_SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                       (ROOT / "vnet_tpu_torch").rglob("*.py")) + [
-                          "chip_smoke.py"] + CUDA_TESTS
+                          "chip_smoke.py"] + CUDA_TESTS + RANK_MODULES
 
 
 def test_port_import_leaves_jax_out():
     """The port, the ``cuda``-marked modules and the functions that
-    ``tests/test_torch_parallel.py`` spawns as ranks import no JAX."""
-    modules = PORT_MODULES + [os.path.basename(p)[:-3] for p in CUDA_TESTS
-                              ] + ["torch_parallel_ranks"]
+    ``tests/test_torch_parallel.py`` and ``tests/test_torch_spatial.py``
+    spawn as ranks import no JAX."""
+    modules = PORT_MODULES + [os.path.basename(p)[:-3]
+                              for p in CUDA_TESTS + RANK_MODULES]
     code = ("import importlib, sys\n"
             "sys.path.insert(0, 'tests')\n"
             f"for m in {modules!r}:\n"
@@ -67,7 +70,9 @@ def test_port_modules_cover_the_package():
                    "io", "ops.fused", "ops.batchnorm",
                    "models.attention", "data.device_aug", "data.distance",
                    "train.events", "train.images", "profiler",
-                   "parallel", "parallel.mesh", "quickstart", "flags.train",
+                   "parallel", "parallel.mesh", "parallel.halo",
+                   "parallel.spatial", "parallel.tensor",
+                   "tools.dryrun_multichip", "quickstart", "flags.train",
                    "flags.evaluate", "experiments.attn_quality",
                    "utils.synthdata", "utils.batch_evaluate", "utils.bbox",
                    "utils.prepare_data", "utils.prepare_data.prepare",

@@ -497,10 +497,93 @@ def test_mesh_without_a_group_is_one_rank():
         make_mesh(2, device="cpu")
 
 
-@pytest.mark.parametrize("space", [2, 4])
-def test_space_parallel_is_not_ported(space):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(space_parallel=space, device="cpu")
+@pytest.mark.parametrize("world,data,space,match", [
+    (4, 0, 3, "space_parallel=3 must divide 4"),
+    (6, 0, 4, "space_parallel=4 must divide 6"),
+    (4, 4, 2, "mesh 4x2 needs 8 devices, have 4"),
+    (8, 2, 8, "mesh 2x8 needs 16 devices, have 8")])
+def test_space_parallel_refusals_match_jax(monkeypatch, world, data, space,
+                                           match):
+    """JAX's ``make_mesh`` refusals, message for message: a space axis that
+    does not divide the ranks, a grid larger than the ranks."""
+    devices = jax.devices("cpu")[:1] * world
+    with pytest.raises(ValueError, match=match):
+        jax_make_mesh(data, space_parallel=space, devices=devices)
+    monkeypatch.setattr(mesh_module, "_world", lambda: (world, 0))
+    with pytest.raises(ValueError, match=match):
+        make_mesh(data, space, device="cpu")
+
+
+@pytest.mark.parametrize("extent,levels", [(20, 2), (24, 4), (8, 3)])
+def test_space_parallel_refuses_extents_the_grid_cannot_split(extent,
+                                                              levels):
+    """``dim % (S * 2**levels)``: the port refuses what JAX's
+    ``validate_partition`` refuses, with its message."""
+    from vnet_tpu.parallel.spatial import validate_partition as jax_validate
+    from vnet_tpu_torch.parallel.spatial import validate_partition
+    for fn in (jax_validate, validate_partition):
+        with pytest.raises(ValueError, match="must be a multiple of shards"):
+            fn((extent, 16, 16), 0, shards=2, num_levels=levels)
+
+
+def test_grid_ranks_are_data_major(monkeypatch):
+    """Rank r of a 2 x 3 grid is data index r // 3, space index r % 3, as
+    JAX reshapes its devices into ``(data, space)``; ``batch_rows`` goes by
+    the data index and ``Mesh.slab`` by the space index."""
+    grid = [Mesh(6, r, r, 2, 1, torch.device("cpu"), 3) for r in range(6)]
+    assert [(m.data_index, m.space_index) for m in grid] == [
+        (0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (1, 2)]
+    assert [batch_rows(m, 4) for m in grid] == [(0, 2)] * 3 + [(2, 4)] * 3
+    assert [m.slab(24) for m in grid[:3]] == [(0, 8), (8, 16), (16, 24)]
+    assert grid[4].space_ranks == (3, 4, 5)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla", "bits8"])
+@pytest.mark.parametrize("shape,space", [((2, 3, 8, 4, 5), 2),
+                                         ((3, 2, 12, 3, 2), 4),
+                                         ((1, 5, 6, 2, 2), 3)])
+def test_dropout_row_map_draws_the_slab_of_the_global_mask(shape, space,
+                                                           impl):
+    """The plain version at ``L < G``: each space rank's slab (first
+    spatial axis, in the ``(B, *spatial, C)`` counter order: ``B`` runs of
+    ``L`` elements ``G`` apart) of a data rank's rows is bitwise that part
+    of the single process's output; slab boundaries fall inside Philox
+    groups for odd ``L``."""
+    from vnet_tpu_torch.ops.dropout import dropout_params, dropout_plain
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=shape)
+                         .astype(np.float32)).contiguous(
+                             memory_format=torch.channels_last_3d)
+    params = dropout_params(0.3, impl)
+    whole = dropout_plain(x, 17, 2, *params, base=40)
+    per = shape[2] // space
+    for s in range(space):
+        slab = x[:, :, s * per:(s + 1) * per]
+        row_len = slab[0].numel()
+        got = dropout_plain(slab, 17, 2, *params, base=40 + s * row_len,
+                            row_len=row_len, row_stride=row_len * space)
+        assert torch.equal(got, whole[:, :, s * per:(s + 1) * per]), s
+
+
+@pytest.mark.parametrize("base", [0, 3, 135])
+def test_dropout_row_map_at_l_equal_g_is_todays_mask(base):
+    """``L = G`` (and ``L = n``) is the contiguous counter, bit for bit the
+    mask without a row map; a row map that does not fit raises."""
+    from vnet_tpu_torch.ops.dropout import (dropout_apply, dropout_params,
+                                            dropout_plain, keep_mask)
+    x = torch.randn(4, 3, 5, 4, 3)
+    params = dropout_params(0.2, "pallas")
+    ref = dropout_plain(x, 5, 1, *params, base=base)
+    n, row = x.numel(), x.numel() // 4
+    for row_len, row_stride in ((row, row), (n, n), (n, 2 * n)):
+        got = dropout_apply(x, 5, 1, *params, base, row_len, row_stride)
+        assert torch.equal(got, ref), (row_len, row_stride)
+    assert torch.equal(keep_mask(n, 5, 1, params[0], base=base, row_len=row,
+                                 row_stride=row),
+                       keep_mask(n, 5, 1, params[0], base=base))
+    with pytest.raises(ValueError, match="does not fit"):
+        dropout_apply(x, 5, 1, *params, base, 7, 7)
+    with pytest.raises(ValueError, match="does not fit"):
+        dropout_apply(x, 5, 1, *params, base, row, row - 1)
 
 
 @pytest.mark.parametrize("batch,devices,expect", [

@@ -288,6 +288,27 @@ def test_restore_false_wipes_and_scan_steps_run(data_dir):
     assert any(s["tag"] == "perf/step_time_s" for s in _scalars(tmp, "train"))
 
 
+def test_a_run_repeats_itself_with_one_loader_worker(data_dir):
+    """Two runs of one config (random crops of 24x24x16 cases into 16^3
+    patches, ``LoaderWorkers: 1``) end with the same parameters bitwise:
+    the trainer seeds the host transforms' shared generator from ``Seed``
+    (left to the operating system, two runs drew other crops and trained
+    apart from the first step)."""
+    cfg = load_config(_write_config(data_dir, LoaderWorkers=1))
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(cfg, device="cpu", log=False)
+        trainer.network.load_state_dict(runs[0][1] if runs else
+                                        trainer.network.state_dict())
+        start = {k: v.clone() for k, v in trainer.network.state_dict().items()}
+        state = trainer.train()
+        runs.append((state.network.state_dict(), start))
+    for k, v in runs[0][0].items():
+        assert torch.equal(v, runs[1][0][k]), k
+    assert any(not torch.equal(v, runs[0][1][k])
+               for k, v in runs[0][0].items())
+
+
 def test_no_batches_raises(data_dir):
     cfg = load_config(_write_config(data_dir, batch=3))
     with pytest.raises(ValueError, match="no batches"):

@@ -64,8 +64,9 @@ def _run(args):
     from .profiler import TraceCapture
 
     config = load_config(args.config_json)
-    if args.devices:
-        config.train.mesh_data_parallel = args.devices
+    if args.devices:  # the ranks form the (data, space) grid
+        config.train.mesh_data_parallel = args.devices // max(
+            int(config.train.mesh_space_parallel), 1)
     rank = dist.get_rank() if dist.is_initialized() else 0
     if args.verbose and rank == 0:
         world = dist.get_world_size() if dist.is_initialized() else 1
@@ -95,7 +96,7 @@ def _run(args):
 def _ranks(args, t) -> int:
     """Local ranks to launch for the training settings ``t``:
     ``--devices``, or for 0 one CPU process and, on the cards, every card
-    (evaluation) or the trainer's data axis (training)."""
+    (evaluation) or the trainer's ``(data, space)`` grid (training)."""
     import torch
 
     from .device import resolve_device
@@ -119,8 +120,11 @@ def _ranks(args, t) -> int:
         want = t.mesh_data_parallel or cards
         source = "Mesh.DataParallel"
     else:
-        want = data_parallel_size(t.batch_size, t.mesh_data_parallel, cards)
-        source = "Mesh.DataParallel"
+        space = max(int(t.mesh_space_parallel), 1)
+        want = space * data_parallel_size(t.batch_size, t.mesh_data_parallel,
+                                          cards // space)
+        source = ("Mesh.DataParallel" if space == 1
+                  else f"Mesh.DataParallel x SpaceParallel {space}:")
     if want > cards:
         raise ValueError(f"{source} {want} needs {want} cards, torch sees "
                          f"{cards}")
@@ -137,9 +141,10 @@ def main(argv=None):
     t = load_config(args.config_json).train
     batch = t.batch_size
     ranks = _ranks(args, t)
-    if args.phase == "train" and batch % ranks:
+    data = ranks // max(int(t.mesh_space_parallel), 1)
+    if args.phase == "train" and data and batch % data:
         raise ValueError(f"--devices {ranks}: a batch of {batch} does not "
-                         f"split over {ranks} data-parallel ranks")
+                         f"split over {data} data-parallel ranks")
     if (torch.device(args.device).type == "cpu" and ranks == 1
             and not under_torchrun()):
         return _run(args)

@@ -7,11 +7,20 @@
 //     out[i] = (u[i] < thr) ? (divide ? x[i] / factor : x[i] * factor) : 0
 //
 // where u[i] is word (j mod 4) of Philox4x32-10 applied to the counter
-// (j / 4, 0), j = base + i, under the key (k0, k1) = (per-step seed,
-// per-module stream). The counter base lets a data-parallel rank draw its
-// rows of the global batch's mask: base is the number of elements of the
-// rows before its own, any value (a base that is not a multiple of 4 starts
-// inside a Philox group and takes the scalar loop below).
+// (j / 4, 0), under the key (k0, k1) = (per-step seed, per-module stream),
+// and j is element i's position in the tensor whose mask this is:
+//
+//     j = base + (i / L) * G + i % L        (row map; L = G: j = base + i)
+//
+// The counter base lets a data-parallel rank draw its rows of the global
+// batch's mask: base is the number of elements of the rows before its own,
+// any value (a base that is not a multiple of 4 starts inside a Philox
+// group and takes the scalar loop below). The row map lets a rank of a
+// spatial partition draw its slab of the unsharded tensor's mask: its
+// tensor is n / L runs ("rows") of L elements, which lie G apart in the
+// unsharded one (a slab of the first spatial axis of a (B, X, Y, Z, C)
+// tensor: L = X/S * Y * Z * C, G = X * Y * Z * C), and base is the slab's
+// first element there.
 // The threshold, the factor and `divide` carry the three dropout flavours of
 // the JAX package (pallas: thr = round(keep * 2^32), times 1/keep; bits8: the
 // top byte against t = round(keep * 256), i.e. thr = t << 24, times 256/t;
@@ -56,8 +65,16 @@
 //     wherever nothing overflows or underflows (Markstein, 1990). A guard
 //     sends what could (|x| < 2^-100 and not 0, |q| >= 2^127, infinities and
 //     NaNs) to __fdiv_rn, which real activations never reach.
-// A scalar loop over Philox groups takes the ragged tail and any tensor
-// whose pointers are not 16-byte aligned, in the same launch.
+//   * the row map costs no division per element: a thread divides once, for
+//     its first vector, and then carries its counter and its offset in the
+//     row from vector to vector by steps the host works out (a vector of 8
+//     16-bit elements may open a new row half way, L being a multiple of 4).
+//     The walk is a template flag, set only for a tensor of several rows
+//     that lie apart: carried through a contiguous tensor it cost the
+//     dividing flavour 13-16% on the H100 (PERF.md), whose arithmetic
+//     per byte leaves no room for it.
+// A scalar loop, one Philox call per element, takes the ragged tail and any
+// tensor whose pointers are not 16-byte aligned, in the same launch.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -165,23 +182,21 @@ __device__ __forceinline__ uint32_t drop_pair(uint32_t w, uint32_t u0,
   return Cvt<T>::pack(drop<DIV>(f.x, u0, p), drop<DIV>(f.y, u1, p));
 }
 
-// The 16 bytes at vector index v: 4 float32 elements (Philox group g0 + v)
-// or 8 16-bit elements (groups g0 + 2v and g0 + 2v + 1), g0 the group of
-// element 0.
+// The 16 bytes of a vector through the dropout: 4 float32 elements (Philox
+// group ga) or 8 16-bit elements (groups ga, then gb).
 template <typename T, bool DIV>
-__device__ __forceinline__ uint4 drop16(uint4 in, long long v, long long g0,
+__device__ __forceinline__ uint4 drop16(uint4 in, long long ga, long long gb,
                                         const Params& p) {
   if constexpr (sizeof(T) == 4) {
-    const uint4 u = philox4x32_10((unsigned long long)(g0 + v), p.k0, p.k1);
+    const uint4 u = philox4x32_10((unsigned long long)ga, p.k0, p.k1);
     const auto f = [&](uint32_t w, uint32_t uw) {
       return __float_as_uint(drop<DIV>(__uint_as_float(w), uw, p));
     };
     return make_uint4(f(in.x, u.x), f(in.y, u.y), f(in.z, u.z),
                       f(in.w, u.w));
   } else {
-    const unsigned long long g = (unsigned long long)(g0 + 2 * v);
-    const uint4 a = philox4x32_10(g, p.k0, p.k1);
-    const uint4 b = philox4x32_10(g + 1ull, p.k0, p.k1);
+    const uint4 a = philox4x32_10((unsigned long long)ga, p.k0, p.k1);
+    const uint4 b = philox4x32_10((unsigned long long)gb, p.k0, p.k1);
     return make_uint4(drop_pair<T, DIV>(in.x, a.x, a.y, p),
                       drop_pair<T, DIV>(in.y, a.z, a.w, p),
                       drop_pair<T, DIV>(in.z, b.x, b.y, p),
@@ -189,95 +204,142 @@ __device__ __forceinline__ uint4 drop16(uint4 in, long long v, long long g0,
   }
 }
 
-// nvec 16-byte vectors from the start of x (0 when x or out is not 16-byte
-// aligned or base is not a multiple of 4), then the Philox groups from the
-// first element after them to n one element at a time: group g covers
-// elements 4g - base .. 4g - base + 3.
-template <typename T, bool DIV>
+// Element i counts at j = base + (i / L) * G + i % L (ROWS), or base + i.
+// nvec 16-byte vectors from the start of x when x and out are 16-byte
+// aligned and base (and L and G) are multiples of 4 (a vector's Philox
+// groups then start at counters that are multiples of 4), else none; then
+// the rest one element and one Philox call at a time. A thread divides
+// once, for its first vector; the grid's stride of vectors is a fixed
+// step_off elements within a row and step_j counters (both from the host),
+// so it carries its offset in the row and its counter from vector to
+// vector.
+template <typename T, bool DIV, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
-                   long long nvec, long long base, Params p) {
+                   long long nvec, long long base, long long row_len,
+                   long long row_stride, long long step_off,
+                   long long step_j, Params p) {
   const long long stride = (long long)gridDim.x * kThreads;
   const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long g0 = base >> 2;
+  constexpr long long kElems = 16 / sizeof(T);
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   uint4* ov = reinterpret_cast<uint4*>(out);
-  for (long long i = first; i < nvec; i += stride)
-    ov[i] = drop16<T, DIV>(__ldg(xv + i), i, g0, p);
-  const long long groups = (base + n + 3) >> 2;
-  for (long long g = g0 + nvec * (long long)(4 / sizeof(T)) + first;
-       g < groups; g += stride) {
-    const uint4 u = philox4x32_10((unsigned long long)g, p.k0, p.k1);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long i = 4 * g + j - base;
-      if (i >= 0 && i < n)
-        out[i] = Cvt<T>::from_f(drop<DIV>(Cvt<T>::to_f(x[i]), w[j], p));
+  if (first < nvec) {
+    long long off = first * kElems;  // in its row (ROWS), else in x
+    long long ja = base + off;
+    if constexpr (ROWS) {
+      const long long r = off / row_len;
+      off -= r * row_len;
+      ja = base + r * row_stride + off;
     }
+    for (long long v = first; v < nvec; v += stride) {
+      // the second group of 8 16-bit elements may open the next row
+      const long long jb = !ROWS || off + 4 < row_len
+                               ? ja + 4
+                               : ja + 4 - row_len + row_stride;
+      ov[v] = drop16<T, DIV>(__ldg(xv + v), ja >> 2, jb >> 2, p);
+      ja += step_j;
+      if constexpr (ROWS) {
+        off += step_off;
+        if (off >= row_len) {
+          off -= row_len;
+          ja += row_stride - row_len;
+        }
+      }
+    }
+  }
+  for (long long i = nvec * kElems + first; i < n; i += stride) {
+    long long j = base + i;
+    if constexpr (ROWS) {
+      const long long r = i / row_len;
+      j = base + r * row_stride + (i - r * row_len);
+    }
+    const uint4 u = philox4x32_10((unsigned long long)(j >> 2), p.k0, p.k1);
+    const int k = (int)(j & 3);
+    const uint32_t w = k == 0 ? u.x : k == 1 ? u.y : k == 2 ? u.z : u.w;
+    out[i] = Cvt<T>::from_f(drop<DIV>(Cvt<T>::to_f(x[i]), w, p));
   }
 }
 
 template <typename T, bool DIV>
 cudaError_t launch(const void* x, void* out, long long n, long long base,
-                   int vec, const Params& p, cudaStream_t stream) {
-  static int resident[64];  // blocks per SM that fit, per device
+                   long long row_len, long long row_stride, int vec,
+                   const Params& p, cudaStream_t stream) {
+  // the row walk only for a tensor of several rows that lie apart
+  const bool rows = row_len < n && row_len != row_stride;
+  const auto kernel =
+      rows ? dropout_kernel<T, DIV, true> : dropout_kernel<T, DIV, false>;
+  static int resident[2][64];  // blocks per SM that fit, per walk, device
   static int sms[64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
+  if (resident[rows][dev] == 0) {
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
                                  dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &resident[dev], dropout_kernel<T, DIV>, kThreads, 0);
+          &resident[rows][dev], kernel, kThreads, 0);
     if (err != cudaSuccess) return err;
   }
-  const long long nvec =
-      vec && (base & 3) == 0 ? n / (16 / (long long)sizeof(T)) : 0;
-  const long long work = nvec > 0 ? nvec : (n + 3) / 4;
+  const bool aligned = vec && (base & 3) == 0 &&
+                       (!rows || ((row_len & 3) == 0 && (row_stride & 3) == 0));
+  const long long nvec = aligned ? n / (16 / (long long)sizeof(T)) : 0;
+  const long long work = nvec > 0 ? nvec : n;
   long long blocks = (work + kThreads - 1) / kThreads;
-  const long long full = (long long)sms[dev] * resident[dev];
+  const long long full = (long long)sms[dev] * resident[rows][dev];
   if (blocks > full) blocks = full;
-  dropout_kernel<T, DIV><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n, nvec, base, p);
+  const long long step = blocks * kThreads * (16 / (long long)sizeof(T));
+  const long long step_rows = rows ? step / row_len : 0;
+  const long long step_off = rows ? step - step_rows * row_len : step;
+  kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n, nvec, base, row_len,
+      row_stride, step_off, step_rows * row_stride + step_off, p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_flavour(const void* x, void* out, long long n,
-                           long long base, int vec, int divide,
+                           long long base, long long row_len,
+                           long long row_stride, int vec, int divide,
                            const Params& p, cudaStream_t stream) {
-  return divide ? launch<T, true>(x, out, n, base, vec, p, stream)
-                : launch<T, false>(x, out, n, base, vec, p, stream);
+  return divide ? launch<T, true>(x, out, n, base, row_len, row_stride, vec,
+                                  p, stream)
+                : launch<T, false>(x, out, n, base, row_len, row_stride, vec,
+                                   p, stream);
 }
 
 }  // namespace
 
 // Host entry point, bound with ctypes. base: the counter of element 0 (>= 0).
-// dtype: 0 float32, 1 bfloat16, 2 float16. factor: rounded to the element
-// type by the caller; divide = 1 divides survivors by it, 0 multiplies.
-// vec = 1 when x and out are both 16-byte aligned. Launches one kernel on
-// `stream` without synchronising and returns cudaGetLastError(), or
-// cudaErrorInvalidValue for arguments outside the contract.
+// row_len, row_stride: the row map (L, G above; 0 < L <= G, n a multiple of
+// L; L = G, or L = n, counts from base contiguously). dtype: 0 float32,
+// 1 bfloat16, 2 float16. factor: rounded to the element type by the
+// caller; divide = 1 divides survivors by it, 0 multiplies. vec = 1 when x
+// and out are both 16-byte aligned. Launches one kernel on `stream` without
+// synchronising and returns cudaGetLastError(), or cudaErrorInvalidValue
+// for arguments outside the contract.
 extern "C" int vnet_dropout(const void* x, void* out, long long n,
-                            long long base, int dtype, unsigned int k0,
+                            long long base, long long row_len,
+                            long long row_stride, int dtype, unsigned int k0,
                             unsigned int k1, unsigned int thr, float factor,
                             int divide, int vec, cudaStream_t stream) {
-  if (n < 1 || base < 0) return (int)cudaErrorInvalidValue;
+  if (n < 1 || base < 0 || row_len < 1 || row_stride < row_len ||
+      n % row_len != 0)
+    return (int)cudaErrorInvalidValue;
   const Params p{k0, k1, thr, factor, 1.0f / factor};  // IEEE on the host
   switch (dtype) {
     case 0:
-      return (int)launch_flavour<float>(x, out, n, base, vec, divide, p,
-                                        stream);
+      return (int)launch_flavour<float>(x, out, n, base, row_len, row_stride,
+                                        vec, divide, p, stream);
     case 1:
-      return (int)launch_flavour<__nv_bfloat16>(x, out, n, base, vec,
-                                                divide, p, stream);
+      return (int)launch_flavour<__nv_bfloat16>(x, out, n, base, row_len,
+                                                row_stride, vec, divide, p,
+                                                stream);
     case 2:
-      return (int)launch_flavour<__half>(x, out, n, base, vec, divide, p,
-                                         stream);
+      return (int)launch_flavour<__half>(x, out, n, base, row_len,
+                                         row_stride, vec, divide, p, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -37,12 +37,16 @@ def flip_coins(generator: torch.Generator, batch: int,
 
 
 def flip_where(x: torch.Tensor, coins: torch.Tensor,
-               axes: Sequence[int]) -> torch.Tensor:
+               axes: Sequence[int],
+               mirror: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flip the samples of ``x`` (``(B, *spatial[, C])``) whose coin is
-    set along every spatial axis in ``axes`` together."""
+    set along every spatial axis in ``axes`` together. ``mirror``: ``x`` is
+    slab ``s`` of ``S`` along spatial axis 0 (in ``axes``) and ``mirror``
+    slab ``S - 1 - s``, whose flip is slab ``s`` of the flipped whole."""
     if not axes:
         return x
-    flipped = torch.flip(x, dims=[a + 1 for a in axes])
+    flipped = torch.flip(x if mirror is None else mirror,
+                         dims=[a + 1 for a in axes])
     sel = coins.reshape((-1,) + (1,) * (x.dim() - 1))
     return torch.where(sel, flipped, x)
 
@@ -56,16 +60,24 @@ def random_flip(generator: torch.Generator, images: torch.Tensor,
 
 
 def random_noise(generator: torch.Generator, images: torch.Tensor,
-                 sigma: float = 5.0, rows=None) -> torch.Tensor:
+                 sigma: float = 5.0, rows=None, slab=None) -> torch.Tensor:
     """Additive Gaussian noise (``RandomNoise``). ``rows``: ``(start, stop,
     n)``, ``images`` are rows ``start:stop`` of a batch of ``n`` and get
     those rows of the batch's noise (a data-parallel rank's share of one
-    draw, so the ranks together add what one process adds)."""
+    draw, so the ranks together add what one process adds). ``slab``:
+    ``(start, stop, extent)``, ``images`` are that slab of spatial axis 0
+    of patches ``extent`` long there, and get that slab of the noise."""
     start, stop, n = rows if rows is not None else (0, len(images),
                                                     len(images))
-    noise = torch.randn((n,) + tuple(images.shape[1:]), generator=generator,
+    shape = list(images.shape[1:])
+    if slab is not None:
+        shape[0] = slab[2]
+    noise = torch.randn([n] + shape, generator=generator,
                         device=images.device, dtype=images.dtype)
-    return images + sigma * noise[start:stop]
+    noise = noise[start:stop]
+    if slab is not None:
+        noise = noise[:, slab[0]:slab[1]]
+    return images + sigma * noise
 
 
 def crop_at(volume: torch.Tensor, label: torch.Tensor, start: torch.Tensor,

@@ -37,6 +37,18 @@ mask from the rank's first element of the global batch, so the ranks draw
 the global batch's mask. Outside that context (the sliding window, as
 JAX's ``shard_map``) statistics are the rank's own.
 
+Spatial partitioning (``parallel/spatial.py``): inside a partition, which
+the trainer enters with ``Mesh.SpaceParallel > 1`` and the
+``spatial_sharded_*`` functions enter themselves, a stencil convolution
+exchanges halos with its ring neighbours along the sharded axis and
+convolves VALID there, SAME elsewhere (direct, per-site ``s2d`` and packed
+alike; stride-2 and 1^r convolutions stay local); halo'd convolutions take
+autograd's weight gradient, as JAX's ``dw_conv_supported`` refuses an
+operand whose extents differ from the gradient's. Batch statistics average
+over the mesh (or over the partition without one), group and instance
+norm over the partition, and dropout draws the rank's slab of the
+unsharded tensor's mask through the counter's row map.
+
 Packed domain (``ops/s2d.py``): a tensor of ``groups * C`` channels,
 offset-major. Whether a layer runs packed depends on the input's extents,
 which JAX decides when it traces; here the owning network decides it at
@@ -61,9 +73,12 @@ from ..ops.conv_vjp import conv_custom_dw
 from ..ops.conv_vjp import same_pads as stride1_pads
 from ..ops.dropout import dropout as dropout_op
 from ..ops.dw_conv import conv3d_dw
-from ..ops.s2d import (norm_factors, packed_conv, packed_down_conv,
-                       prod_factors, s2d_conv, s2d_down_conv, s2d_up_conv)
-from ..parallel.mesh import active_mesh, all_reduce_mean
+from ..ops.s2d import (conv_padded, norm_factors, packed_conv,
+                       packed_down_conv, prod_factors, s2d_conv,
+                       s2d_down_conv, s2d_up_conv)
+from ..parallel.mesh import (active_mesh, all_reduce_mean,
+                             group_all_reduce_mean)
+from ..parallel.spatial import current_partition, halo_exchange_asym
 
 NORM_KINDS = ("batch", "batch_stats", "group", "instance", "none")
 ACTIVATIONS = ("relu", "prelu", "lrelu")
@@ -89,17 +104,29 @@ def _glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
         w.uniform_(-lim, lim, generator=generator)
 
 
+def _partition_mean(t: torch.Tensor) -> torch.Tensor:
+    """``t`` averaged over the active spatial partition (equal slabs)."""
+    part = current_partition()
+    if part is None:
+        return t
+    return group_all_reduce_mean(t, part.group, part.size)
+
+
 def batch_moments(xf: torch.Tensor, axes=None):
     """``(E[x], E[x^2])`` of float32 ``xf`` over ``axes`` (every axis for
-    ``None``), averaged over the ranks of the active data-parallel mesh."""
+    ``None``), averaged over every rank of the active mesh, or else over
+    the active spatial partition (equal shards: the global moments)."""
     if axes is None:
         mean, sq = xf.mean(), xf.square().mean()
     else:
         mean, sq = xf.mean(axes), xf.square().mean(axes)
     mesh = active_mesh()
+    both = torch.stack([mean, sq])
     if mesh is not None:
-        mean, sq = all_reduce_mean(torch.stack([mean, sq]), mesh).unbind(0)
-    return mean, sq
+        both = all_reduce_mean(both, mesh)
+    else:
+        both = _partition_mean(both)
+    return both.unbind(0)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple:
@@ -223,9 +250,10 @@ class GroupNorm(nn.Module):
         g = self.num_groups
         xg = x.float().reshape((b, g, c // g) + tuple(x.shape[2:]))
         axes = tuple(range(2, xg.ndim))
-        mean = xg.mean(axes, keepdim=True)
-        var = torch.clamp_min(xg.square().mean(axes, keepdim=True)
-                              - mean.square(), 0.0)
+        mean, sq = _partition_mean(torch.stack([
+            xg.mean(axes, keepdim=True),
+            xg.square().mean(axes, keepdim=True)])).unbind(0)
+        var = torch.clamp_min(sq - mean.square(), 0.0)
         mul = torch.rsqrt(var + _EPS)
         y = ((xg - mean) * mul).reshape(x.shape)
         y = (y * _channel_view(self.weight, x.ndim)
@@ -276,8 +304,10 @@ class Norm(nn.Module):
         xf = x.float()
         axes = tuple(range(2, x.ndim))
         if axes:
-            mean = xf.mean(axes, keepdim=True)
-            var = xf.square().mean(axes, keepdim=True) - mean.square()
+            mean, sq = _partition_mean(torch.stack([
+                xf.mean(axes, keepdim=True),
+                xf.square().mean(axes, keepdim=True)])).unbind(0)
+            var = sq - mean.square()
         else:  # no spatial axes: each value is its own mean
             mean, var = xf, torch.zeros_like(xf)
         y = ((xf - mean) * torch.rsqrt(var + _EPS)).to(x.dtype)
@@ -414,7 +444,8 @@ class SpatialConv(nn.Module):
                 y = y.reshape(xs.shape[:-1] + (groups * cout,)).movedim(-1, 1)
             else:
                 y = packed_conv(x, w, input_splits=packed_input_splits,
-                                factors=factors, dw_impl=self.dw_impl)
+                                factors=factors, dw_impl=self.dw_impl,
+                                halo=current_partition())
             return y + _channel_view(b.repeat(groups), y.ndim)
 
         stride1 = self.strides == (1,) * rank
@@ -429,10 +460,22 @@ class SpatialConv(nn.Module):
             raise ValueError(f"s2d conv not applicable: kernel={k}, "
                              f"strides={self.strides}, "
                              f"spatial={tuple(x.shape[2:])}")
+        part = current_partition()
+        if part is not None and not stride1:
+            # a strided convolution of an even slab touches each voxel
+            # once along the sharded axis: local
+            sp = part.axis
+            if not (k[sp] <= self.strides[sp]
+                    and x.shape[2 + sp] % self.strides[sp] == 0):
+                raise NotImplementedError(
+                    f"spatial partition: strided conv k={k} "
+                    f"s={self.strides} needs halos")
         if self.impl != "direct" and can_down:
             y = s2d_down_conv(x, w)
         elif use_s2d:
-            y = s2d_conv(x, w)
+            y = s2d_conv(x, w, halo=part)
+        elif part is not None and stride1 and any(kk > 1 for kk in k):
+            return self._halo_conv(x, w, b, part)
         elif self.dw_impl == "pallas" and rank == 3 and stride1:
             y = conv3d_dw(x, w)
         elif self.dw_impl == "custom" and stride1:
@@ -447,6 +490,16 @@ class SpatialConv(nn.Module):
                 padding = 0
             return _CONV[rank](x, w, b, self.strides, padding)
         return y + _channel_view(b, y.ndim)
+
+    def _halo_conv(self, x, w, b, part):
+        """The stride-1 convolution of a slab of a spatially partitioned
+        tensor (``vnet_tpu/models/layers.py:428-447``): halos along the
+        sharded axis and VALID there, SAME elsewhere."""
+        k, sp = self.kernel_size, part.axis
+        xh = halo_exchange_asym(x, (k[sp] - 1) // 2, k[sp] // 2, part, 2 + sp)
+        pads = [((kk - 1) // 2, kk // 2) for kk in k]
+        pads[sp] = (0, 0)
+        return conv_padded(xh, w, pads) + _channel_view(b, xh.ndim)
 
 
 class SpatialConvTranspose(nn.Module):
@@ -514,7 +567,9 @@ class Dropout(nn.Module):
     The mask is keyed by ``(seed, index)``: ``seed`` is the training step's
     seed, set by the owning network before each forward (``VNet``), and
     ``index`` is fixed when the network is built, so two layers never share
-    a mask and a backward pass regenerates its forward's mask.
+    a mask and a backward pass regenerates its forward's mask. Inside a
+    mesh or a spatial partition the rank draws its part of the unsharded
+    tensor's mask (:func:`mask_map`).
     """
 
     def __init__(self, rate: float, impl: str = "xla", index: int = 0):
@@ -533,10 +588,27 @@ class Dropout(nn.Module):
         if self.seed is None:
             raise ValueError("training-mode dropout needs a step seed "
                              "(VNet.forward(x, dropout_seed=...))")
-        mesh = active_mesh()  # the rank's rows of the global batch's mask
-        base = 0 if mesh is None else mesh.rank * x.numel()
         return dropout_op(x, self.seed, self.index, self.rate, self.impl,
-                          base)
+                          *mask_map(x))
+
+
+def mask_map(x: torch.Tensor):
+    """``(base, row_len, row_stride)`` of the counter (``ops/dropout.py``)
+    that gives this rank its part of the mask of the unsharded tensor: the
+    data row's block of the global batch (``base`` = the elements of the
+    rows before it) and, in a spatial partition of ``S`` slabs along
+    spatial axis ``a``, the slab: in the ``(B, *spatial, C)`` counter order
+    the rank holds runs of ``L`` = the elements from axis ``a`` on, ``G =
+    L * S`` apart, its first at ``s * L``."""
+    mesh, part = active_mesh(), current_partition()
+    n = x.numel()
+    shards = 1 if part is None else part.size
+    rows = 0 if mesh is None else mesh.data_index
+    base = rows * n * shards
+    if part is None or part.size == 1:
+        return base, 0, 0
+    row_len = math.prod(x.shape[2 + part.axis:]) * x.shape[1]
+    return base + part.index * row_len, row_len, row_len * part.size
 
 
 class DownConv(nn.Module):

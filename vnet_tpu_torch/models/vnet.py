@@ -70,6 +70,7 @@ from torch import nn
 
 from ..ops.s2d import (depth_to_space, norm_factors, prod_factors,
                        space_to_depth)
+from ..parallel.spatial import current_partition
 from .layers import (Activation, DownConv, Dropout, Norm, SpatialConv,
                      TiledInputBatchNorm, UpConv)
 
@@ -337,7 +338,12 @@ class VNet(nn.Module):
             x = self.input_act(self.input_norm(self.input_conv(x)))
         x = x.contiguous(memory_format=_MEMORY_FORMAT[rank])
 
-        plan = self.plan(x.shape[2:])
+        # GSPMD (the trainer's partition) plans the unsharded program,
+        # shard_map (spatial_sharded_*) the local one
+        part = current_partition()
+        plan = self.plan(part.global_extents(x.shape[2:])
+                         if part is not None and part.global_plan
+                         else x.shape[2:])
         skips = []
         for level, (enc_p, enc_f) in enumerate(plan["encoder"]):
             x = getattr(self, f"encoder_level_{level + 1}")(

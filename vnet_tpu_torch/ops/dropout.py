@@ -13,7 +13,11 @@ order, or ``(B, H, W, C)`` for the 2D network (``csrc/dropout.cu``), plus
 a counter base: a data-parallel rank passes the number of elements of the
 global batch's rows before its own, so its mask is those rows of the
 global batch's mask, whatever the base's remainder mod 4 (one Philox call
-covers four elements). The backward pass applies the same function to the
+covers four elements). A row map ``(row_len, row_stride)`` = ``(L, G)``
+counts element ``i`` at ``base + (i // L) * G + i % L``: a rank of a
+spatial partition holds ``n / L`` runs of ``L`` elements that lie ``G``
+apart in the unsharded tensor, and so draws its slab of that tensor's mask;
+``L = G`` (the default, ``0``) counts contiguously. The backward pass applies the same function to the
 gradient with the same key and base, so nothing but the key is saved. The
 threshold, factor and operation of each flavour (:func:`dropout_params`):
 
@@ -98,10 +102,29 @@ def philox4x32_10(counter: torch.Tensor, k0: int, k1: int) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3], dim=-1)
 
 
+def row_map(n: int, row_len: int = 0, row_stride: int = 0):
+    """``(L, G)`` of a row map for ``n`` elements: ``0`` is one row of
+    ``n``; checks ``0 < L <= G`` and that ``L`` divides ``n``."""
+    row_len = int(row_len) or n
+    row_stride = int(row_stride) or row_len
+    if row_len < 1 or row_stride < row_len or n % row_len:
+        raise ValueError(f"row map (row_len={row_len}, row_stride="
+                         f"{row_stride}) does not fit {n} elements")
+    return row_len, row_stride
+
+
 def keep_mask(n: int, seed: int, stream: int, thr: int,
-              device=None, base: int = 0) -> torch.Tensor:
+              device=None, base: int = 0, row_len: int = 0,
+              row_stride: int = 0) -> torch.Tensor:
     """Boolean keep mask of the ``n`` elements from ``base`` on, in counter
-    order."""
+    order, row by row under a row map ``(row_len, row_stride)``."""
+    if n == 0:
+        return torch.zeros(0, dtype=torch.bool, device=device)
+    row_len, row_stride = row_map(n, row_len, row_stride)
+    if row_len < n and row_len != row_stride:
+        return torch.cat([keep_mask(row_len, seed, stream, thr, device,
+                                    base + r * row_stride)
+                          for r in range(n // row_len)])
     lo, hi = base // 4, (base + n + 3) // 4
     parts = []
     for start in range(lo, hi, _PLAIN_GROUPS):
@@ -145,11 +168,13 @@ def _in_dtype(factor: float, dtype: torch.dtype) -> float:
 
 
 def dropout_plain(x: torch.Tensor, seed: int, stream: int, thr: int,
-                  factor: float, divide: bool, base: int = 0) -> torch.Tensor:
+                  factor: float, divide: bool, base: int = 0,
+                  row_len: int = 0, row_stride: int = 0) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch; any device."""
     xs = _storage_order(x)
     f = _in_dtype(factor, x.dtype)
-    keep = keep_mask(xs.numel(), seed, stream, thr, x.device, base)
+    keep = keep_mask(xs.numel(), seed, stream, thr, x.device, base, row_len,
+                     row_stride)
     xf = _flat(xs).float()
     # a 0-d tensor on x's device: PyTorch's CUDA division by a Python
     # scalar multiplies by its reciprocal, which can differ by one ulp
@@ -164,7 +189,7 @@ def bind(lib: ctypes.CDLL):
     """``lib.vnet_dropout`` with its C signature."""
     fn = lib.vnet_dropout
     fn.argtypes = ([ctypes.c_void_p] * 2
-                   + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int,
                       ctypes.c_uint,
                       ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -178,28 +203,35 @@ def _kernel():
 
 
 def dropout_apply(x: torch.Tensor, seed: int, stream: int, thr: int,
-                  factor: float, divide: bool, base: int = 0) -> torch.Tensor:
+                  factor: float, divide: bool, base: int = 0,
+                  row_len: int = 0, row_stride: int = 0) -> torch.Tensor:
     """``where(u < thr, x / factor if divide else x * factor, 0)`` with
     ``u`` from the key ``(seed, stream)`` counted from element ``base``
-    (:func:`dropout_params` gives ``thr, factor, divide``); returns a new
-    tensor, channels-last for 4D and 5D input. CUDA tensors launch
-    ``csrc/dropout.cu``; CPU tensors take :func:`dropout_plain`."""
+    under the row map ``(row_len, row_stride)`` (:func:`dropout_params`
+    gives ``thr, factor, divide``); returns a new tensor, channels-last
+    for 4D and 5D input. CUDA tensors launch ``csrc/dropout.cu``; CPU
+    tensors take :func:`dropout_plain`."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"dropout takes float32, bfloat16 or float16, got "
                         f"{x.dtype}")
     if base < 0:
         raise ValueError(f"counter base must be >= 0, got {base}")
+    if x.numel():
+        row_map(x.numel(), row_len, row_stride)
     if x.device.type == "cpu":
-        return dropout_plain(x, seed, stream, thr, factor, divide, base)
+        return dropout_plain(x, seed, stream, thr, factor, divide, base,
+                             row_len, row_stride)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out = launch_with(_kernel(), x, seed, stream, thr, factor, divide, base)
+    out = launch_with(_kernel(), x, seed, stream, thr, factor, divide, base,
+                      row_len, row_stride)
     dropout_apply.launches += 1
     return out
 
 
 def launch_with(fn, x: torch.Tensor, seed: int, stream: int, thr: int,
-                factor: float, divide: bool, base: int = 0) -> torch.Tensor:
+                factor: float, divide: bool, base: int = 0,
+                row_len: int = 0, row_stride: int = 0) -> torch.Tensor:
     """Launch ``fn``, a ctypes function with ``vnet_dropout``'s interface,
     on a CUDA tensor ``x`` as :func:`dropout_apply` does, without counting
     (``tools/dropout_bench.py`` times other builds of the kernel with it)."""
@@ -208,7 +240,9 @@ def launch_with(fn, x: torch.Tensor, seed: int, stream: int, thr: int,
     if xs.numel() == 0:
         return out
     x_ptr, out_ptr = xs.data_ptr(), out.data_ptr()
-    args = (x_ptr, out_ptr, xs.numel(), int(base), _DTYPES[x.dtype],
+    row_len, row_stride = row_map(xs.numel(), row_len, row_stride)
+    args = (x_ptr, out_ptr, xs.numel(), int(base), row_len, row_stride,
+            _DTYPES[x.dtype],
             int(seed) & _MASK32, int(stream) & _MASK32, int(thr),
             _in_dtype(factor, x.dtype), int(bool(divide)),
             int((x_ptr | out_ptr) % 16 == 0))
@@ -231,19 +265,23 @@ class _Dropout(torch.autograd.Function):
     """Forward and backward are the same masked scale under one key."""
 
     @staticmethod
-    def forward(ctx, x, seed, stream, thr, factor, divide, base):
-        ctx.key = (seed, stream, thr, factor, divide, base)
-        return dropout_apply(x, seed, stream, thr, factor, divide, base)
+    def forward(ctx, x, seed, stream, thr, factor, divide, base, row_len,
+                row_stride):
+        ctx.key = (seed, stream, thr, factor, divide, base, row_len,
+                   row_stride)
+        return dropout_apply(x, *ctx.key)
 
     @staticmethod
     def backward(ctx, g):
-        return (dropout_apply(g, *ctx.key),) + (None,) * 6
+        return (dropout_apply(g, *ctx.key),) + (None,) * 8
 
 
 def dropout(x: torch.Tensor, seed: int, stream: int, rate: float,
-            impl: str = "pallas", base: int = 0) -> torch.Tensor:
+            impl: str = "pallas", base: int = 0, row_len: int = 0,
+            row_stride: int = 0) -> torch.Tensor:
     """Differentiable dropout of ``x`` under the key ``(seed, stream)``,
-    counted from element ``base``; ``rate`` in (0, 1), ``impl`` one of
-    :data:`IMPLS`."""
+    counted from element ``base`` under the row map ``(row_len,
+    row_stride)``; ``rate`` in (0, 1), ``impl`` one of :data:`IMPLS`."""
     return _Dropout.apply(x, int(seed), int(stream),
-                          *dropout_params(rate, impl), int(base))
+                          *dropout_params(rate, impl), int(base),
+                          int(row_len), int(row_stride))

@@ -259,10 +259,18 @@ def conv_padded(x: torch.Tensor, w: torch.Tensor, pads) -> torch.Tensor:
 
 
 def packed_conv(xp: torch.Tensor, weight: torch.Tensor, input_splits=None,
-                factors=None, dw_impl: str = "xla") -> torch.Tensor:
+                factors=None, dw_impl: str = "xla",
+                halo=None) -> torch.Tensor:
     """Stride-1 SAME convolution of an already packed ``xp`` by the
     original ``(O, I, *k)`` weight: ``s2d(conv(d2s(xp), weight))`` without
     the transposes.
+
+    ``halo``: a spatial partition (``parallel/spatial.py``); ``xp`` is then
+    the rank's slab, which exchanges the packed pads of the sharded axis
+    with its neighbours in the packed domain (the unpacked pad on an axis
+    the level leaves at factor 1) and convolves VALID there, with
+    autograd's weight gradient (the dW kernel takes SAME operands only, as
+    JAX's ``dw_conv_supported`` refuses a halo'd one).
 
     ``dw_impl``: ``"pallas"`` takes the weight gradient of a rank-3
     convolution from ``ops/dw_conv.py`` (the CUDA kernel on the card; a
@@ -276,6 +284,15 @@ def packed_conv(xp: torch.Tensor, weight: torch.Tensor, input_splits=None,
     factors = norm_factors(factors, rank)
     packed = pack_kernel(weight, input_splits=input_splits, factors=factors)
     pads = packed_pads(k, factors)
+    if halo is not None:
+        from ..parallel.spatial import halo_exchange_asym
+        lo, hi = pads[halo.axis]
+        xp = halo_exchange_asym(xp, lo, hi, halo, 2 + halo.axis)
+        pads[halo.axis] = (0, 0)
+        if dw_impl == "custom":
+            from .conv_vjp import conv_custom_dw
+            return conv_custom_dw(xp, packed, tuple(map(tuple, pads)))
+        return conv_padded(xp, packed, pads)
     if dw_impl == "pallas" and rank == 3:
         from .dw_conv import conv3d_dw
         # odd packed extents: the packed pads are conv3d_dw's SAME pads
@@ -369,9 +386,11 @@ def s2d_up_conv(x: torch.Tensor, weight: torch.Tensor,
     return y if keep_packed else depth_to_space(y)
 
 
-def s2d_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def s2d_conv(x: torch.Tensor, weight: torch.Tensor,
+             halo=None) -> torch.Tensor:
     """SAME stride-1 convolution computed in the space-to-depth domain;
-    equals the direct one for odd kernels on even extents."""
+    equals the direct one for odd kernels on even extents. ``halo``: see
+    :func:`packed_conv`."""
     if weight.shape[2] % 2 == 0:
         raise ValueError("s2d_conv takes odd kernels only")
-    return depth_to_space(packed_conv(space_to_depth(x), weight))
+    return depth_to_space(packed_conv(space_to_depth(x), weight, halo=halo))

@@ -273,6 +273,17 @@ def get_parser() -> argparse.ArgumentParser:
                     help="profile the device over training steps START+1 "
                          "to START+COUNT and report its idle share, and "
                          "the run's unprofiled step")
+    ap.add_argument("--loader_workers", type=int, default=None,
+                    help="the config's LoaderWorkers (default 2): 1 draws "
+                         "the crops in one order, run after run")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="torch.use_deterministic_algorithms(True) for the "
+                         "run (set CUBLAS_WORKSPACE_CONFIG=:4096:8 too)")
+    ap.add_argument("--eval_norms", nargs="+", default=None,
+                    choices=sorted(RANK2_MODES),
+                    help="3D: evaluate once per mode, each into its own "
+                         "label files, as --rank2 does (default: the "
+                         "config's EvalNorm)")
     return ap
 
 
@@ -331,6 +342,17 @@ def main(argv=None) -> dict:
                          min_pixel=args.min_pixel, lr=args.lr,
                          augment=args.augment,
                          multimodal=args.multimodal, seed=args.seed)
+    if args.loader_workers is not None:
+        with open(cpath) as f:
+            written = json.load(f)
+        written["TrainingSetting"]["LoaderWorkers"] = args.loader_workers
+        with open(cpath, "w") as f:
+            json.dump(written, f, indent=2)
+    if args.deterministic:
+        import torch
+
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.benchmark = False
     print(f"config written: {cpath}", flush=True)
 
     from .config import load_config
@@ -368,12 +390,13 @@ def main(argv=None) -> dict:
         return scores
 
     dice = {}
-    if args.rank2:
+    modes = args.eval_norms or (list(RANK2_MODES) if args.rank2 else None)
+    if modes:
         # 2D slice-stacked evaluation depends on the batch-norm statistics'
         # source: report both, each mode into its own label files
-        for mode, filename in RANK2_MODES.items():
+        for mode in modes:
             e = dataclasses.replace(cfg.evaluate, eval_norm=mode,
-                                    label_filename=filename)
+                                    label_filename=RANK2_MODES[mode])
             dice[mode] = run_eval(dataclasses.replace(cfg, evaluate=e), mode)
     else:
         dice[cfg.evaluate.eval_norm] = run_eval(cfg, cfg.evaluate.eval_norm)

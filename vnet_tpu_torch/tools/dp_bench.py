@@ -54,6 +54,7 @@ from .profile_step import breakdown, flagship_step, timed_steps
 
 CHECK_BATCH = 4  # (a): cut from 96 so the float32 step fits beside its twin
 BATCH = 96  # (b): bench.py's batch
+PATCH = (64, 64, 64)
 STEPS = 3
 SEED = 0
 DROPOUT_SEED = 20261017
@@ -72,45 +73,50 @@ ADAM_EPS = 1e-8
 DROPOUT_LAYERS, DW_LAUNCHES = 21, 21  # the packed flagship's, a step
 
 
-def _reset_launches() -> None:
-    dropout_apply.launches = dw_conv.launches = 0
-
-
 def _launches() -> dict:
     return {"dropout": dropout_apply.launches, "dw_conv": dw_conv.launches}
 
 
+def launches_since(before: dict) -> dict:
+    """The kernel launches since ``before`` (a :func:`_launches` reading);
+    the counters themselves are never reset here, so a caller counting
+    around a whole run sees every launch."""
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
 def dropout_masks(net):
-    """Forward hooks on every dropout layer of ``net``: per layer, the
-    packed bits of ``dropped`` (output 0, input not 0) and ``valid`` (input
-    not 0) in the logical ``(B, C, *spatial)`` order; ``(records,
-    handles)``."""
+    """Forward hooks on every dropout layer of ``net``: per layer ``(shape,
+    dropped, valid)``, the packed bits of ``dropped`` (output 0, input not
+    0) and ``valid`` (input not 0) in the logical ``(B, C, *spatial)``
+    order; ``(records, handles)``."""
     records = []
 
     def hook(module, inputs, out):
         x = inputs[0]
-        records.append([np.packbits(b.cpu().numpy().reshape(-1))
-                        for b in ((out == 0) & (x != 0), x != 0)])
+        records.append((tuple(x.shape),) + tuple(
+            np.packbits(b.cpu().numpy().reshape(-1))
+            for b in ((out == 0) & (x != 0), x != 0)))
 
     handles = [m.register_forward_hook(hook) for m in net.modules()
                if isinstance(m, Dropout)]
     return records, handles
 
 
-def train_check(mesh=None, device="cuda"):
-    """(a) on the rank's rows (the whole batch without ``mesh``): loss,
-    metrics, gradients, state dict, dropout masks, launches."""
+def train_check(mesh=None, device="cuda", batch=CHECK_BATCH, patch=PATCH):
+    """(a) on the rank's rows, and with a space axis its slab (the whole
+    batch without ``mesh``): loss, metrics, gradients, state dict, dropout
+    masks, launches."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         state, step, images, labels = flagship_step(
-            "pallas", CHECK_BATCH, device=device, seed=SEED, mesh=mesh,
-            dtype=torch.float32, compute_metrics=True)
+            "pallas", batch, device=device, seed=SEED, mesh=mesh,
+            dtype=torch.float32, compute_metrics=True, patch=patch)
         masks, handles = dropout_masks(state.network)
-        _reset_launches()
+        before = _launches()
         out = step(state, images, labels, dropout_seed=DROPOUT_SEED)
         torch.cuda.synchronize()
-        launches = _launches()
+        launches = launches_since(before)
         for h in handles:
             h.remove()
     finally:
@@ -135,11 +141,12 @@ def step_timing(mesh=None, device="cuda", batch=BATCH,
                                                 mesh=mesh)
     torch.cuda.reset_peak_memory_stats()
     timed_steps(state, step, images, labels, 1)
-    _reset_launches()
+    before = _launches()
     times, losses = timed_steps(state, step, images, labels, STEPS)
     out = dict(ms=statistics.median(times), times=times, losses=losses,
                peak=torch.cuda.max_memory_allocated(), rows=len(images),
-               per_step={k: v / STEPS for k, v in _launches().items()})
+               per_step={k: v / STEPS
+                         for k, v in launches_since(before).items()})
     if profile:
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -211,9 +218,9 @@ def compare_masks(ref_masks, rank_masks):
     process's, on the elements whose input is nonzero in both runs:
     ``(layers, compared elements, mismatches)``."""
     compared = mismatched = 0
-    for (ref_drop, ref_valid), *parts in zip(ref_masks, *rank_masks):
-        drop = np.unpackbits(np.concatenate([p[0] for p in parts]))
-        valid = np.unpackbits(np.concatenate([p[1] for p in parts]))
+    for (*_, ref_drop, ref_valid), *parts in zip(ref_masks, *rank_masks):
+        drop = np.unpackbits(np.concatenate([p[-2] for p in parts]))
+        valid = np.unpackbits(np.concatenate([p[-1] for p in parts]))
         both = valid & np.unpackbits(ref_valid)
         compared += int(both.sum())
         mismatched += int(((drop ^ np.unpackbits(ref_drop)) & both).sum())

@@ -2,7 +2,7 @@
 steps, timed on the card.
 
     python -m vnet_tpu_torch.tools.dropout_bench [--out FILE.json]
-        [--compare SRC ...] [--steps] [--list]
+        [--compare SRC ...] [--steps] [--space S] [--list]
 
 The shapes come from the module trees: a forward pre-hook on every
 ``Dropout`` of the network that the step's config builds (packed, as the
@@ -48,7 +48,12 @@ step of each of the three (after warm-up steps): the dropout kernels'
 launches and device ms in the step (each launch's in the output file), and
 the copies (``aten::copy_``) made
 inside dropout's forward and backward, which would be layout copies of
-their inputs. ``--list`` prints the shapes and exits; it needs no card.
+their inputs. ``--space S`` also times the flagship step's shapes as a
+rank of a ``SpaceParallel`` S grid launches them: the slab of the first
+spatial axis (``(B, C, X/S, Y, Z)``) under its row map (``L = X/S*Y*Z*C``,
+``G = X*Y*Z*C``, the base of slab 1), each held bitwise against the plain
+version at the first launch. ``--list`` prints the shapes and exits; it
+needs no card.
 The card's name and power limit head the output.
 """
 
@@ -270,16 +275,19 @@ def host_us(call, calls: int = 20, runs: int = 5) -> float:
 def kernel_registers(log: str):
     """``[(instantiation, registers)]`` from nvcc's ``-Xptxas -v`` log
     (empty when this process did not compile the library): each
-    ``dropout_kernel<T, DIV>`` as ``"bf16 divide"`` and the like, with its
-    registers a thread, which set the blocks that fit on an SM."""
+    ``dropout_kernel<T, DIV, ROWS>`` as ``"bf16 divide"`` (``"bf16 divide
+    rows"`` with the row walk) and the like, with its registers a thread,
+    which set the blocks that fit on an SM."""
     types = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, entry = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*dropout_kernelI"
-                      r"(f|13__nv_bfloat16|6__half)Lb([01])E", line)
+                      r"(f|13__nv_bfloat16|6__half)Lb([01])E(?:Lb([01])E)?",
+                      line)
         if m:
             entry = (types[m.group(1)] + " "
-                     + ("divide" if m.group(2) == "1" else "multiply"))
+                     + ("divide" if m.group(2) == "1" else "multiply")
+                     + (" rows" if m.group(3) == "1" else ""))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry is not None:
             out.append((entry, int(m.group(1))))
@@ -287,11 +295,21 @@ def kernel_registers(log: str):
     return out
 
 
-def measure_shape(shape, impls, gen, compare=()):
-    """One row per flavour at ``shape``: see the module docstring."""
+def slab_map(shape, space: int):
+    """``(slab shape, (base, L, G))`` of space rank 1's slab of the first
+    spatial axis of the logical ``(B, C, X, ...)`` ``shape`` under a
+    ``SpaceParallel`` of ``space``."""
+    slab = tuple(shape[:2]) + (shape[2] // space,) + tuple(shape[3:])
+    row_len = math.prod(slab[1:])
+    return slab, (row_len, row_len, math.prod(shape[1:]))
+
+
+def measure_shape(shape, impls, gen, compare=(), row_map=(0, 0, 0)):
+    """One row per flavour at ``shape``: see the module docstring;
+    ``row_map`` = ``(base, row_len, row_stride)`` of every launch."""
     import torch.nn.functional as F
 
-    from ..ops.dropout import dropout_apply, dropout_params
+    from ..ops.dropout import dropout_apply, dropout_params, dropout_plain
 
     xs = _inputs(shape, gen)
     count = max(LAUNCHES, len(xs))
@@ -301,12 +319,18 @@ def measure_shape(shape, impls, gen, compare=()):
         params = dropout_params(RATE, impl)
 
         def kernel(i):
-            return dropout_apply(xs[i % len(xs)], 1234, 5, *params)
+            return dropout_apply(xs[i % len(xs)], 1234, 5, *params,
+                                 *row_map)
 
+        if any(row_map) and not torch.equal(
+                kernel(0), dropout_plain(xs[0], 1234, 5, *params, *row_map)):
+            raise SystemExit(f"dropout_bench: the kernel differs from the "
+                             f"plain version at {shape} {impl} {row_map}")
         ms, names, dropped, retakes = device_ms(kernel, count, floor)
         if not all("dropout_kernel" in n for n in names):
             raise SystemExit(f"dropout_bench: other kernels {names}")
-        row = dict(shape=list(shape), impl=impl, device_ms=ms,
+        row = dict(shape=list(shape), impl=impl, row_map=list(row_map),
+                   device_ms=ms,
                    dropped=dropped, retakes=retakes,
                    event_ms=event_ms(kernel, count),
                    call_ms=call_ms(kernel), host_us=host_us(kernel),
@@ -316,7 +340,8 @@ def measure_shape(shape, impls, gen, compare=()):
             from ..ops.dropout import launch_with
 
             def other(i, fn=fn):
-                return launch_with(fn, xs[i % len(xs)], 1234, 5, *params)
+                return launch_with(fn, xs[i % len(xs)], 1234, 5, *params,
+                                   *row_map)
 
             equal = all(torch.equal(other(i), kernel(i))
                         for i in range(min(2, len(xs))))
@@ -414,6 +439,9 @@ def main(argv=None):
                              "the package's")
     parser.add_argument("--steps", action="store_true",
                         help="also profile one step of each main path")
+    parser.add_argument("--space", type=int, default=0, metavar="S",
+                        help="also time the flagship's shapes as slabs of "
+                             "a SpaceParallel S grid, row-mapped")
     parser.add_argument("--list", action="store_true",
                         help="print the shapes and exit (no card needed)")
     args = parser.parse_args(argv)
@@ -452,9 +480,21 @@ def main(argv=None):
             for row in measure_shape(shape, todo, gen, compare):
                 table[(shape, row["impl"])] = row
                 print(_row_line(row, [n for n, _ in compare]), flush=True)
+    impls = {step: spec[3] for step, spec in STEPS.items()}
+    if args.space:
+        step = f"flagship slab {args.space}"
+        impls[step] = STEPS["flagship"][3]
+        shapes[step] = []
+        for shape, n in shapes["flagship"]:
+            slab, row_map = slab_map(shape, args.space)
+            shapes[step].append((slab, n))
+            for row in measure_shape(slab, impls[step], gen, compare,
+                                     row_map):
+                table[(slab, row["impl"])] = row
+                print(_row_line(row, [n for n, _ in compare]), flush=True)
     sums = {}
     for step, rows in shapes.items():
-        for impl in STEPS[step][3]:
+        for impl in impls[step]:
             per = [(2 * n, table[(s, impl)]) for s, n in rows]
             entry = dict(
                 launches=sum(k for k, _ in per),
@@ -489,7 +529,9 @@ def main(argv=None):
 def _row_line(row, compare) -> str:
     lib = row["F.dropout"]
     share = row["bound_ms"] / row["device_ms"]
-    line = (f"{tuple(row['shape'])} {row['impl']:6s}: device "
+    line = (f"{tuple(row['shape'])} {row['impl']:6s}"
+            + (f" row map (base, L, G) {tuple(row['row_map'])}"
+               if any(row["row_map"]) else "") + ": device "
             f"{row['device_ms']:.4f} ms ({share:.1%} of the "
             f"{row['bound_ms']:.4f} ms bound), events "
             f"{row['event_ms']:.4f} ms, one wrapper call {row['call_ms']:.4f}"

@@ -63,7 +63,7 @@ BATCH_2D = 32
 # kernels are the matrix products (the packed network's down and up
 # convolutions, its 1^r output conv, and the packed kernels' dx)
 GROUPS = (
-    ("nccl", "collectives"),
+    ("sendrecv", "halo exchange"), ("nccl", "collectives"),
     ("dw_mma_kernel", "dW kernel"), ("dw_partial_kernel", "dW kernel"),
     ("dw_reduce_kernel", "dW kernel"),
     ("dropout_kernel", "dropout kernel"),
@@ -80,14 +80,17 @@ CONV_IMPLS = ("packed", "direct")
 
 def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
                   patch=PATCH, conv_impl: str = "packed", mesh=None,
-                  dtype=torch.bfloat16, compute_metrics: bool = False):
+                  dtype=torch.bfloat16, compute_metrics: bool = False,
+                  dw_impl=None):
     """``(state, step_fn, images, labels)`` of the flagship workload;
-    ``batch`` is the global batch, and with a data-parallel ``mesh`` the
-    step is the mesh's and the tensors are the rank's rows."""
+    ``batch`` is the global batch, and with a ``mesh`` the step is the
+    mesh's and the tensors are the rank's rows (and, with a space axis, its
+    slab of the first spatial axis). ``dw_impl`` defaults to ``impl``."""
     net = build_network("VNet", num_classes=NUM_CLASSES, dropout_rate=0.01,
                         norm="batch", dtype=dtype, device=device,
                         generator=torch.Generator().manual_seed(seed),
-                        dropout_impl=impl, dw_impl=impl, conv_impl=conv_impl)
+                        dropout_impl=impl, dw_impl=dw_impl or impl,
+                        conv_impl=conv_impl)
     opt, schedule = build_optimizer(
         OptimizerConfig(name="Adam", initial_learning_rate=1e-2,
                         decay_factor=0.99, decay_steps=100),
@@ -97,11 +100,12 @@ def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
         NUM_CLASSES, schedule, compute_metrics=compute_metrics, mesh=mesh)
     host = np.random.default_rng(seed)
     lo, hi = (0, batch) if mesh is None else batch_rows(mesh, batch)
+    s0, s1 = (0, patch[0]) if mesh is None else mesh.slab(patch[0])
     images = torch.from_numpy(host.normal(size=(batch,) + patch + (1,))
-                              .astype(np.float32)[lo:hi]).to(device)
+                              .astype(np.float32)[lo:hi, s0:s1]).to(device)
     labels = torch.from_numpy(host.integers(
-        0, NUM_CLASSES, size=(batch,) + patch).astype(np.int32)[lo:hi]).to(
-            device)
+        0, NUM_CLASSES, size=(batch,) + patch).astype(np.int32)[
+            lo:hi, s0:s1]).to(device)
     return TrainState(net, opt), step, images, labels
 
 

@@ -6,6 +6,10 @@ defaults): packed convolutions with adaptive per-level packing at
 ``PackedTargetLanes``, the double norm of ``VNetLegacy``, any name of the
 zoo; ``build_network(..., conv_impl="direct")`` builds the direct one.
 ``Remat: true`` is accepted and ignored, with a warning (ROADMAP.md).
+The host transforms' shared generator (``data/rand.py``) is seeded from
+``Seed`` and the run's first step when training starts, so a run with one
+loader worker (``LoaderWorkers: 1`` or 0) draws the same crops every time;
+the JAX trainer leaves it seeded from the operating system.
 
 Eager PyTorch: the step is forward (the network in train mode, dropout
 keyed by the step's seed), loss, ``backward``, optimizer step, in place on
@@ -57,8 +61,27 @@ logged loss, aux values and metrics are global. So a step at R ranks
 computes what one process computes on the global batch. Only rank 0
 writes checkpoints, ``network_config.json`` and the logs; the others wait
 at a barrier where a later read needs the files. ``ImageLog`` shows rank
-0's rows. ``SpaceParallel`` above 1 raises ``NotImplementedError``
-(ROADMAP.md).
+0's rows.
+
+Spatial partitioning (``Mesh.SpaceParallel`` S > 1, ``parallel/spatial.py``):
+the ranks form a ``(data, space)`` grid, data-major; every rank of a data
+row loads the row's samples and keeps its slab of the first spatial axis
+(the patch's first extent must be a multiple of ``S * 2**levels``, its
+bottom slab at least one conv halo; with several loader threads the row's
+first space rank's batch is broadcast to the row, so the ranks hold the
+same crops whatever order the threads drew them in), and the step runs in
+the mesh's
+partition: halos at every stencil convolution, packing planned on the
+global extents, batch statistics over the whole grid, the loss statistics
+summed over the row, the gradients summed over the row and averaged over
+the rows, dropout the slab of the unsharded mask, the device flip and
+noise drawn for the whole patch (a flip along the sharded axis takes the
+mirrored slab, which the rank uploads beside its own). So the step
+computes the unsharded step's loss, gradients (up to summation order),
+running averages and dropout masks, as JAX's GSPMD trainer does. The
+checkpoints hold the unsharded network: a run resumes at any
+``SpaceParallel``. ``ImageLog`` runs rank 0's whole rows unsharded.
+Attention networks and ``Dense`` do not take a partition and raise.
 """
 
 from __future__ import annotations
@@ -76,6 +99,7 @@ import torch
 from ..config import Config, load_pipeline
 from ..data import (BatchLoader, NiftiDataset2D, NiftiDataset3D,
                     build_pipeline)
+from ..data import rand
 from ..data.device_aug import flip_coins, flip_where, random_noise
 from ..data.transforms3d import RandomFlip, RandomNoise
 from ..models import attention_distance_loss, build_network, eval_apply
@@ -84,6 +108,7 @@ from ..ops.metrics import batch_metrics
 from ..parallel.mesh import (Mesh, batch_rows, data_parallel,
                              data_parallel_size, make_mesh,
                              make_multislice_mesh)
+from ..parallel.spatial import current_partition, validate_partition
 from ..profiler import StepTimer, TraceCapture
 from . import checkpoints
 from .events import EventWriter
@@ -155,11 +180,16 @@ def make_train_step(loss_cfg, num_classes: int,
     (``batch_rows``) of a global batch of ``B * mesh.data``, and the step
     is that batch's: global batch statistics and dropout masks, the
     augmentation's draws for the global batch sliced to the rank's rows,
-    gradients averaged over the ranks, global logged values."""
+    gradients averaged over the ranks, global logged values. With
+    ``mesh.space > 1`` the tensors are the rank's slab (``Mesh.slab``) of
+    the first spatial axis of those rows and the step runs in the mesh's
+    partition; ``mirror``: ``(images, labels)`` of the mirrored slab,
+    which a device flip along that axis needs."""
 
     def step_fn(state: TrainState, images, labels, dropout_seed: int,
                 distance_maps=None,
-                device_augment: Optional[Tuple[tuple, float]] = None):
+                device_augment: Optional[Tuple[tuple, float]] = None,
+                mirror=None):
         net, opt = state.network, state.optimizer
         net.train()
         if device_augment is not None:
@@ -167,16 +197,23 @@ def make_train_step(loss_cfg, num_classes: int,
             gen = augment_generator(images.device, dropout_seed)
             n = images.shape[0] * (1 if mesh is None else mesh.data)
             lo, hi = (0, n) if mesh is None else batch_rows(mesh, n)
+            slab = None
+            if mesh is not None and mesh.space > 1:
+                full = images.shape[1] * mesh.space
+                slab = mesh.slab(full) + (full,)
             if flip_axes:
                 coins = flip_coins(gen, n, images.device)[lo:hi]
-                images = flip_where(images, coins, flip_axes)
-                labels = flip_where(labels, coins, flip_axes)
+                sharded = slab is not None and 0 in flip_axes
+                images = flip_where(images, coins, flip_axes,
+                                    mirror[0] if sharded else None)
+                labels = flip_where(labels, coins, flip_axes,
+                                    mirror[1] if sharded else None)
                 if distance_maps is not None:
                     distance_maps = flip_where(distance_maps, coins,
                                                flip_axes)
             if noise_sigma > 0.0:
                 images = random_noise(gen, images, noise_sigma,
-                                      rows=(lo, hi, n))
+                                      rows=(lo, hi, n), slab=slab)
         set_learning_rate(opt, schedule, state.step)  # pre-increment count
         opt.zero_grad(set_to_none=True)
         with data_parallel(mesh):
@@ -184,7 +221,8 @@ def make_train_step(loss_cfg, num_classes: int,
             logits = out[0] if is_attention else out
             loss, aux = segmentation_loss(
                 logits, labels, name=loss_cfg.name, num_classes=num_classes,
-                weights=loss_cfg.weights, alpha=loss_cfg.alpha)
+                weights=loss_cfg.weights, alpha=loss_cfg.alpha,
+                partition=current_partition())
             if is_attention and distance_maps is not None:
                 att_loss = attention_distance_loss(
                     out[1], distance_maps, kind=loss_cfg.attention_kind,
@@ -215,13 +253,13 @@ def make_eval_step(loss_cfg, num_classes: int, compute_auc: bool = False,
     (``Norm: batch_stats``) included."""
 
     def step_fn(state: TrainState, images, labels):
-        with data_parallel(mesh):
+        with data_parallel(mesh), torch.inference_mode():
             out = eval_apply(state.network, images)
-        logits = out[0] if is_attention else out
-        with torch.inference_mode():
+            logits = out[0] if is_attention else out
             loss, aux = segmentation_loss(
                 logits, labels, name=loss_cfg.name, num_classes=num_classes,
-                weights=loss_cfg.weights, alpha=loss_cfg.alpha)
+                weights=loss_cfg.weights, alpha=loss_cfg.alpha,
+                partition=current_partition())
             metrics = batch_metrics(
                 logits, labels, num_classes, compute_auc=compute_auc,
                 reduce=None if mesh is None else mesh.sum)
@@ -266,9 +304,10 @@ def trainer_mesh(t, device="cuda") -> Mesh:
                                     t.mesh_space_parallel, device)
     world = (torch.distributed.get_world_size()
              if torch.distributed.is_initialized() else 1)
+    space = max(int(t.mesh_space_parallel), 1)
     return make_mesh(data_parallel_size(t.batch_size, t.mesh_data_parallel,
-                                        world),
-                     t.mesh_space_parallel, device)
+                                        world // space),
+                     space, device)
 
 
 class Trainer:
@@ -303,6 +342,15 @@ class Trainer:
             legacy_double_norm=net_cfg.name == "VNetLegacy",
             dw_impl=net_cfg.dw_impl, spatial_rank=t.dimension,
             patch_shape=t.patch_shape)
+        if self.mesh.space > 1:
+            if self.is_attention or name == "Dense":
+                raise NotImplementedError(
+                    f"Mesh.SpaceParallel={self.mesh.space}: {name} does not "
+                    "take a spatial partition (VNet, VNetLegacy and UNet "
+                    "do)")
+            validate_partition(t.patch_shape, 0, self.mesh.space,
+                               self.network.num_levels,
+                               kernel_halo=1 if name == "UNet" else 2)
         self.optimizer, self.lr_schedule = build_optimizer(
             t.optimizer, self.network.parameters())
         self._train_step_fn = make_train_step(
@@ -324,20 +372,38 @@ class Trainer:
         return torch.from_numpy(np.asarray(array, dtype)).to(
             self.device, non_blocking=True)
 
+    def _slabs(self, images, labels):
+        """The rank's slab of the first spatial axis of host rows, and the
+        mirrored slab when a device flip along that axis needs it."""
+        mesh = self.mesh
+        if mesh.space == 1:
+            return images, labels, None
+        s0, s1 = mesh.slab(np.shape(images)[1])
+        mirror = None
+        if self._device_aug is not None and 0 in self._device_aug[0]:
+            m0, m1 = np.shape(images)[1] - s1, np.shape(images)[1] - s0
+            mirror = (self._tensor(np.asarray(images)[:, m0:m1], np.float32),
+                      self._tensor(np.asarray(labels)[:, m0:m1], np.int32))
+        return (np.asarray(images)[:, s0:s1], np.asarray(labels)[:, s0:s1],
+                mirror)
+
     def train_step(self, state: TrainState, images, labels,
                    dropout_seed: int, distance_maps=None) -> TrainStepOutput:
-        """One step on host arrays (the rank's rows of the global batch);
-        an attention network without distance maps regresses its gate to
-        zero maps, as the JAX trainer does."""
+        """One step on host arrays (the rank's rows of the global batch,
+        whole patches); an attention network without distance maps
+        regresses its gate to zero maps, as the JAX trainer does."""
         if self.is_attention and distance_maps is None:
             distance_maps = np.zeros(np.shape(labels), np.float32)
         dmaps = (None if distance_maps is None
                  else self._tensor(distance_maps, np.float32))
+        images, labels, mirror = self._slabs(images, labels)
         return self._train_step_fn(state, self._tensor(images, np.float32),
                                    self._tensor(labels, np.int32),
-                                   dropout_seed, dmaps, self._device_aug)
+                                   dropout_seed, dmaps, self._device_aug,
+                                   mirror)
 
     def eval_step(self, state: TrainState, images, labels) -> TrainStepOutput:
+        images, labels, _ = self._slabs(images, labels)
         return self._eval_step_fn(state, self._tensor(images, np.float32),
                                   self._tensor(labels, np.int32))
 
@@ -500,6 +566,18 @@ class Trainer:
         mesh.barrier()  # rank 0's last checkpoint is on disk
         return state
 
+    def _row_batch(self, batch):
+        """The row's batch, the same on every space rank of the row: a
+        threaded loader with several workers draws the host randomness in
+        the threads' order, so the first space rank's batch is broadcast
+        to the row; one worker (or the process backend's per-sample seeds)
+        draws the same on every rank."""
+        t = self.t
+        if (self.mesh.space > 1 and t.loader_workers > 1
+                and t.loader_backend != "process"):
+            return self.mesh.broadcast_row(batch)
+        return batch
+
     def _dropout_seeds(self, start_step: int):
         """Per-step dropout seeds from a generator seeded with ``Seed + 1``;
         a resumed run skips the seeds of the steps already taken."""
@@ -514,6 +592,11 @@ class Trainer:
 
     def _train_loop(self, state: TrainState, max_steps):
         t = self.t
+        # the host transforms' shared generator (data/rand.py), from Seed,
+        # the first step and the data row (the space ranks of a row draw
+        # alike, the rows apart): with one loader worker a run repeats
+        # itself
+        rand.seed([t.seed, state.step, self.mesh.data_index])
         train_loader = self.build_loader(t.data_dir, "train")
         test_loader = (self.build_loader(t.test_data_dir, "test")
                        if t.testing and t.test_data_dir else None)
@@ -529,7 +612,8 @@ class Trainer:
             t0 = time.time()
             pending = None  # (step, out), logged one step late
             epoch_batches = 0
-            for images, labels, *rest in train_loader.epoch():
+            for batch in train_loader.epoch():
+                images, labels, *rest = self._row_batch(batch)
                 epoch_batches += 1
                 if state.step >= limit:
                     if self.mesh.rank == 0:
@@ -576,7 +660,7 @@ class Trainer:
                               "disabling inline testing.")
                         test_loader = None
                     else:
-                        timages, tlabels, *_ = test_batch
+                        timages, tlabels, *_ = self._row_batch(test_batch)
                         self._log_scalars("test", state.step, self.eval_step(
                             state, timages, tlabels))
                         if t.image_log:
