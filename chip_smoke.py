@@ -236,6 +236,24 @@ non-zero before the result line:
    (c) ``spatial_sharded_forward`` of one
    384x384x64 volume at ``config_eval_gaussian.json``'s network, float32
    with TF32 off, against the unsharded forward;
+24. (run after phase 22) export and the native runtime at
+   ``config_eval_gaussian.json``'s full width (the packed network, 16
+   channels, 4 levels, bf16, patch 256x256x32, batch 10, 3 classes, random
+   weights from a seeded generator): the eval forward exported
+   (``torch.export``) and compiled into AOTInductor packages for ``cuda``,
+   in bf16 and in float32, with the seconds of each step; each package
+   loaded in Python and held on one batch of 10 windowed patches against
+   the eager module's softmax on the card (float32 with TF32 off within
+   ``EXPORT_F32_ATOL``; bf16: max |diff| and the share of equal argmax
+   labels, at least ``EXPORT_BF16_AGREE``); ``vnet_infer_torch`` built
+   from source with ``g++`` against libtorch CUDA (during the compiles)
+   and run on one synthetic 384x384x64 volume with the bf16 package: it
+   names a ``cuda`` device, its labels lie in {0, 1, 2} on the input's
+   geometry, no port kernel launches, and its label agrees with the
+   Python ``Evaluator``'s on the same volume and weights (cosine blend,
+   LCC and volume threshold off, as the native client has none) on at
+   least ``NATIVE_AGREE`` of the voxels; the runner's seconds a volume
+   beside the ``Evaluator``'s steady seconds a case;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -338,6 +356,19 @@ QS2D_STEPS = 4
 # across ranks in another order than one process adds them
 DP_PROB_ATOL = 1e-5
 DP_LABEL_GAP = 1e-4
+# phase 24: the AOTInductor package against the eager module on the card.
+# float32 with TF32 off: the same function, Inductor's fused kernels
+# summing in other orders; allowed max |diff| of the probabilities
+EXPORT_F32_ATOL = 1e-4
+# bf16: Inductor rounds to bf16 at other places than the eager layers do
+# (it keeps fused intermediates in float32), so labels can flip where the
+# two highest probabilities nearly tie; the least share of equal labels
+EXPORT_BF16_AGREE = 0.99
+# vnet_infer_torch against the Python Evaluator on one volume: the same
+# windowed, unresampled voxels (window in float32 against float64), the
+# package's bf16 rounding against the eager module's, the same uniform
+# blend; the least share of equal labels
+NATIVE_AGREE = 0.99
 # phase 23: two gloo ranks on the one card at SpaceParallel 2; (a)'s
 # tolerances are tools/dp_bench.py's (phase 20's), (b)'s batch is cut from
 # 96 so the halos staged through host memory keep the phase short
@@ -2938,6 +2969,153 @@ def phase_flags(tmp):
     return train_counts["dropout"], eval_counts["blend_accumulate"]
 
 
+def _window_like_the_pipeline(img):
+    """``StatisticalNormalization`` (sigma 2.5) of the evaluation pipeline:
+    the window ``mean +- 2.5 std`` mapped onto [0, 255], in float64."""
+    mean, std = float(img.mean()), float(img.std())
+    lo, hi = mean - 2.5 * std, mean + 2.5 * std
+    windowed = np.clip((img.astype(np.float64) - lo) * (255.0 / (hi - lo)),
+                       0.0, 255.0).astype(np.float32)
+    return windowed, lo, hi
+
+
+def phase_export(tmp):
+    from vnet_tpu_torch import export, native
+    from vnet_tpu_torch.config import load_config
+    from vnet_tpu_torch.infer.evaluator import Evaluator
+    from vnet_tpu_torch.infer.sliding_window import build_patch_grid
+    from vnet_tpu_torch.io import MedicalImage, read_image, write_image
+    from vnet_tpu_torch.models import build_network, eval_apply
+    from vnet_tpu_torch.train import checkpoints
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_path, cfg = _write_config(tmp)
+    # the native client blends uniformly and has no LCC or threshold
+    cfg["EvaluationSetting"].update(
+        GaussianBlend=False, LargestConnectedComponent=False,
+        VolumeThreshold=0, ProbabilityOutput=False)
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    ts = cfg["TrainingSetting"]
+    net_cfg = ts["Networks"]
+    classes = len(ts["SegmentationClasses"])
+    net32 = build_network(
+        "VNet", num_classes=classes, num_channels=net_cfg["NumChannel"],
+        num_levels=net_cfg["NumLevels"],
+        num_convolutions=net_cfg["NumConvolutions"],
+        bottom_convolutions=net_cfg["BottomConvolutions"],
+        norm=net_cfg["Norm"], dropout_rate=0.0, device="cpu",
+        generator=torch.Generator().manual_seed(SEED))
+    checkpoints.save(ts["CheckpointDir"], net32.state_dict(), 0)
+    net32.to("cuda")
+    ev = Evaluator(load_config(cfg_path), device="cuda")  # bf16, packed
+    check(ev.network.dtype == torch.bfloat16, "the config's network is bf16")
+    shape = (SLICE_BATCH,) + SLICE_PATCH + (1,)
+
+    reset_counts()
+    packages = {}
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(native.build)  # g++ beside Inductor
+        for tag, net in (("bf16", ev.network), ("f32", net32)):
+            t0 = time.perf_counter()
+            program = export.export_forward(net, shape, device="cuda")
+            t1 = time.perf_counter()
+            packages[tag] = export.compile_package(
+                program, os.path.join(tmp, f"forward_{tag}.pt2"))
+            t2 = time.perf_counter()
+            say(f"[24] {tag} {shape}: torch.export {t1 - t0:.2f} s, "
+                f"AOTInductor compile for cuda {t2 - t1:.2f} s, package "
+                f"{os.path.getsize(packages[tag])} bytes")
+        built = building.result()
+    say(f"[24] native build (host library, vnet_infer_torch, C++ tests) "
+        f"with g++ against libtorch: compiled={built.compiled} "
+        f"{built.seconds:.2f} s ({built.directory.name})")
+
+    img = _synthetic_image(np.random.default_rng(SEED + 24))
+    windowed, lo, hi = _window_like_the_pipeline(img)
+    starts = build_patch_grid(SLICE_VOLUME, SLICE_PATCH, SLICE_STRIDE)
+    x = torch.from_numpy(np.stack([
+        windowed[a:a + SLICE_PATCH[0], b:b + SLICE_PATCH[1],
+                 c:c + SLICE_PATCH[2]]
+        for a, b, c in starts[:SLICE_BATCH]])[..., None]).cuda()
+    for tag, net in (("f32", net32), ("bf16", ev.network)):
+        ref = torch.softmax(eval_apply(net, x), dim=-1)
+        got = export.load_package(packages[tag])(x)
+        torch.cuda.synchronize()
+        check(got.shape == shape[:-1] + (classes,) and got.is_cuda,
+              f"{tag} package output {tuple(got.shape)} on {got.device}")
+        check(bool(torch.isfinite(got).all()), f"{tag} package: non-finite")
+        diff = (got - ref).abs()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        say(f"[24] {tag} package vs the eager module's softmax on the card, "
+            f"one batch of {SLICE_BATCH} windowed patches: max |diff| "
+            f"{diff.max().item():.3e}, mean |diff| {diff.mean().item():.3e}, "
+            f"equal argmax labels {agree:.6f}")
+        if tag == "f32":
+            check(diff.max().item() <= EXPORT_F32_ATOL,
+                  f"the f32 package is more than {EXPORT_F32_ATOL} off")
+        else:
+            check(agree >= EXPORT_BF16_AGREE,
+                  f"the bf16 package's labels agree on {agree:.6f} < "
+                  f"{EXPORT_BF16_AGREE}")
+        del got, ref, diff
+    del net32, x
+    torch.cuda.empty_cache()
+
+    case = os.path.join(tmp, "evaluate", "case_0")
+    os.makedirs(case)
+    image_path = os.path.join(case, "image.nii")
+    write_image(MedicalImage(img, (0.75, 0.75, 0.75)), image_path)
+    out = os.path.join(tmp, "label_native.nii")
+    cmd = [str(built.infer), image_path, out, "128",
+           "x".join(map(str, SLICE_PATCH)), "x".join(map(str, SLICE_STRIDE)),
+           "8", packages["bf16"], str(classes), repr(lo), repr(hi), "0.75"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for line in proc.stdout.splitlines():
+        say(f"[24] vnet_infer_torch: {line}")
+    check(proc.returncode == 0,
+          f"vnet_infer_torch exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check(any(line.startswith("device: cuda")
+              for line in proc.stdout.splitlines()),
+          "vnet_infer_torch did not run on cuda")
+    check(not any(counts.values()),
+          f"the export path launched kernels of the port: {counts}")
+    seconds = float(next(line.split()[2] for line in proc.stdout.splitlines()
+                         if line.startswith("inference time:")))
+    label, source = read_image(out), read_image(image_path)
+    values = set(np.unique(label.data).tolist())
+    check(values <= {0, 1, 2}, f"native label values {values}")
+    for get in ("GetSize", "GetSpacing", "GetOrigin", "GetDirection"):
+        check(np.allclose(getattr(label, get)(), getattr(source, get)(),
+                          atol=1e-6), f"native label {get} differs")
+
+    ev.evaluate_case(case)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    label_py, _ = ev.evaluate_case(case)
+    torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    agree = float(np.mean(label.data == label_py.data))
+    say(f"[24] vnet_infer_torch, one {'x'.join(map(str, SLICE_VOLUME))} "
+        f"volume on the card: "
+        f"{seconds:.3f} s (read, window, resample, {len(starts)} patches "
+        f"in batches of {SLICE_BATCH}, uniform blend, argmax, resample "
+        f"back, write; the first volume of its process), process wall "
+        f"{wall:.2f} s; the Python Evaluator on the same case, uniform "
+        f"blend, steady: {steady:.3f} s (PR 9: 1.19 s steady with the "
+        f"cosine blend, LCC and probability maps); labels equal on "
+        f"{agree:.6f} of the voxels (values {sorted(values)}, "
+        f"{int(np.count_nonzero(label.data))} foreground)")
+    check(agree >= NATIVE_AGREE, f"vnet_infer_torch and the Evaluator agree "
+          f"on {agree:.6f} < {NATIVE_AGREE} of the voxels")
+    del ev
+    torch.cuda.empty_cache()
+
+
 def run():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3003,6 +3181,11 @@ def run():
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_flags_")
     try:
         fl_drops, fl_blends = phase_flags(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_export_")
+    try:
+        phase_export(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     drop_rows, drop_sums = phase_dropout_times()

@@ -76,7 +76,7 @@ def test_port_modules_cover_the_package():
                    "flags.evaluate", "experiments.attn_quality",
                    "utils.synthdata", "utils.batch_evaluate", "utils.bbox",
                    "utils.prepare_data", "utils.prepare_data.prepare",
-                   "utils.prepare_data.__main__"):
+                   "utils.prepare_data.__main__", "export", "native"):
         assert f"vnet_tpu_torch.{module}" in PORT_MODULES, module
     assert {os.path.basename(p) for p in CUDA_TESTS} == {
         f"test_torch_cuda_{k}.py" for k in ("blend", "fused", "dropout",

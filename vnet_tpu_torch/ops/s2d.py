@@ -40,6 +40,7 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
 
@@ -188,9 +189,11 @@ def _pack_gather(k: int, rank: int, factors: tuple, device: torch.device):
     made once: a copy from host memory at every call would make the host
     wait for the device's queue each time. Made outside inference mode, so
     that a first call under ``torch.inference_mode`` (evaluation) does not
-    leave tensors that training cannot use."""
+    leave tensors that training cannot use, and outside any fake-tensor
+    mode, so that a first call under ``torch.export`` caches real tensors,
+    which the exported program then holds as constants."""
     _, tap_index, mask = _pack_maps(k, rank, factors)
-    with torch.inference_mode(False):
+    with torch.inference_mode(False), unset_fake_temporarily():
         return (torch.as_tensor(tap_index.reshape(-1), device=device),
                 torch.as_tensor(mask, device=device))
 
