@@ -241,7 +241,8 @@ non-zero before the result line:
    channels, 4 levels, bf16, patch 256x256x32, batch 10, 3 classes, random
    weights from a seeded generator): the eval forward exported
    (``torch.export``) and compiled into AOTInductor packages for ``cuda``,
-   in bf16 and in float32, with the seconds of each step; each package
+   in bf16 and, at a cut depth (2 levels), in float32, with the seconds
+   of each step; each package
    loaded in Python and held on one batch of 10 windowed patches against
    the eager module's softmax on the card (float32 with TF32 off within
    ``EXPORT_F32_ATOL``; bf16: max |diff| and the share of equal argmax
@@ -254,6 +255,24 @@ non-zero before the result line:
    LCC and volume threshold off, as the native client has none) on at
    least ``NATIVE_AGREE`` of the voxels; the runner's seconds a volume
    beside the ``Evaluator``'s steady seconds a case;
+25. (run after phase 24) ``Remat``: (a) the flagship step (64^3, float32
+   with TF32 off, cuDNN deterministic, ``pallas`` dropout and dW) at batch
+   ``REMAT_CHECK_BATCH`` without and with ``Remat``: equal losses and
+   running averages, gradients within ``REMAT_GRAD_RTOL`` of the largest,
+   every dropout launch held bitwise against its plain version, each
+   layer's forward mask the plain network's and each recomputed mask its
+   forward's, 21 dW launches in both and 42 against 54 dropout launches;
+   (b) the bf16 flagship step at batch ``REMAT_BATCH`` without and with
+   ``Remat``: median ms, peak memory (lower with ``Remat``), launches a
+   step; (c) the main path: ``python -m vnet_tpu_torch -p train`` on
+   ``configs/config.json``'s ``TrainingSetting`` (batch 32 at [256, 256,
+   32], its pipeline, ``xla`` dropout) with ``Remat: true`` for
+   ``REMAT_STEPS`` steps on ``REMAT_CASES`` LiTS-shaped synthetic cases
+   (320x320x48, ``utils/synthdata.py``): the network recomputes, the
+   losses are finite, 54 dropout launches a step, each held bitwise
+   against its plain version in the ``xla`` flavour (forward, recompute
+   and backward at config.json's shapes), no dW launch, the wall and the
+   peak memory;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -369,6 +388,19 @@ EXPORT_BF16_AGREE = 0.99
 # package's bf16 rounding against the eager module's, the same uniform
 # blend; the least share of equal labels
 NATIVE_AGREE = 0.99
+# phase 25: Remat against the plain network. (a) runs the same kernels on
+# the same inputs (TF32 off, cuDNN deterministic) with the recompute's
+# activations equal to the forward's; its gradients go through the same
+# sums, allowed max |diff| relative to the largest gradient (the CPU
+# test's)
+REMAT_GRAD_RTOL = 1e-5
+REMAT_CHECK_BATCH = 4
+REMAT_BATCH = 32  # (b), cut from 96
+# (c): LiTS-shaped cases; the loader draws one patch a case an epoch, so
+# config.json's batch needs as many cases
+REMAT_CASES = 32
+REMAT_STEPS = 3
+LITS_CASE = (320, 320, 48)
 # phase 23: two gloo ranks on the one card at SpaceParallel 2; (a)'s
 # tolerances are tools/dp_bench.py's (phase 20's), (b)'s batch is cut from
 # 96 so the halos staged through host memory keep the phase short
@@ -1261,11 +1293,12 @@ def _spy_groups():
     return seen, lambda: setattr(dist, "init_process_group", real)
 
 
-def _flagship_steps(impl, batch, conv_impl):
+def _flagship_steps(impl, batch, conv_impl, remat=False):
     from vnet_tpu_torch.tools.profile_step import flagship_step, timed_steps
 
     state, step, images, labels = flagship_step(impl, batch, seed=SEED,
-                                                conv_impl=conv_impl)
+                                                conv_impl=conv_impl,
+                                                remat=remat)
     torch.cuda.reset_peak_memory_stats()
     timed_steps(state, step, images, labels, 1)  # warm-up
     reset_counts()
@@ -3000,14 +3033,21 @@ def phase_export(tmp):
     ts = cfg["TrainingSetting"]
     net_cfg = ts["Networks"]
     classes = len(ts["SegmentationClasses"])
+    # the f32 check at a cut depth (2 of the 4 levels): its compile took
+    # 46-53 s at full depth
     net32 = build_network(
+        "VNet", num_classes=classes, num_channels=net_cfg["NumChannel"],
+        num_levels=2, num_convolutions=net_cfg["NumConvolutions"][:2],
+        bottom_convolutions=net_cfg["BottomConvolutions"],
+        norm=net_cfg["Norm"], dropout_rate=0.0, device="cpu",
+        generator=torch.Generator().manual_seed(SEED))
+    checkpoints.save(ts["CheckpointDir"], build_network(
         "VNet", num_classes=classes, num_channels=net_cfg["NumChannel"],
         num_levels=net_cfg["NumLevels"],
         num_convolutions=net_cfg["NumConvolutions"],
         bottom_convolutions=net_cfg["BottomConvolutions"],
         norm=net_cfg["Norm"], dropout_rate=0.0, device="cpu",
-        generator=torch.Generator().manual_seed(SEED))
-    checkpoints.save(ts["CheckpointDir"], net32.state_dict(), 0)
+        generator=torch.Generator().manual_seed(SEED)).state_dict(), 0)
     net32.to("cuda")
     ev = Evaluator(load_config(cfg_path), device="cuda")  # bf16, packed
     check(ev.network.dtype == torch.bfloat16, "the config's network is bf16")
@@ -3116,6 +3156,178 @@ def phase_export(tmp):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# phase 25: Remat
+# ----------------------------------------------------------------------
+def _remat_check_step(remat):
+    """(a): one float32 flagship step at ``REMAT_CHECK_BATCH``; every
+    dropout launch held against its plain version, every dropout call's
+    ``(layer, dropped)`` recorded (the recompute's after the forward's)."""
+    from vnet_tpu_torch.models.layers import Dropout
+    from vnet_tpu_torch.tools.profile_step import flagship_step
+
+    state, step, images, labels = flagship_step(
+        "pallas", REMAT_CHECK_BATCH, seed=SEED, dtype=torch.float32,
+        remat=remat)
+    net = state.network
+    masks = []
+    handles = [m.register_forward_hook(
+        lambda m, inp, out: masks.append((m.index, (out == 0)
+                                          & (inp[0] != 0))))
+        for m in net.modules() if isinstance(m, Dropout)]
+    reset_counts()
+    with _holding() as (_, drops):
+        out = step(state, images, labels, dropout_seed=SEED + 25)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counts().items() if v}
+    for h in handles:
+        h.remove()
+    return dict(loss=float(out.loss), masks=masks, drops=drops,
+                counts=counts, n=len(net.dropouts),
+                grads={k: p.grad.detach().clone()
+                       for k, p in net.named_parameters()},
+                buffers={k: v.clone() for k, v in net.named_buffers()})
+
+
+def _remat_cases(tmp):
+    from vnet_tpu_torch.utils.synthdata import make_hard_dataset
+
+    make_hard_dataset(tmp, "training", REMAT_CASES,
+                      np.random.default_rng(SEED + 25), shape=LITS_CASE)
+    with open(TRAIN_CONFIG) as f:
+        cfg = json.load(f)
+    ts = cfg["TrainingSetting"]
+    ts["Data"]["TrainingDataDirectory"] = os.path.join(tmp, "training")
+    ts["Data"]["TestingDataDirectory"] = os.path.join(tmp, "training")
+    ts.update(MaxIterations=REMAT_STEPS, Restore=False,
+              LogDir=os.path.join(tmp, "log"),
+              CheckpointDir=os.path.join(tmp, "ckpt"),
+              Pipeline=os.path.join(ROOT, ts["Pipeline"]))
+    ts["Networks"]["Remat"] = True
+    path = os.path.join(tmp, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path, ts
+
+
+def phase_remat(tmp):
+    """Phase 25; returns the dropout launches of (c), the main path."""
+    from vnet_tpu_torch.__main__ import main
+    from vnet_tpu_torch.ops.dropout import dropout_params
+
+    # (a) float32, the same kernels on the same inputs
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _remat_check_step(False)
+        remat = _remat_check_step(True)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    largest = max(g.abs().max().item() for g in plain["grads"].values())
+    grad_err = max((remat["grads"][k] - g).abs().max().item()
+                   for k, g in plain["grads"].items())
+    buffers_equal = all(torch.equal(remat["buffers"][k], v)
+                        for k, v in plain["buffers"].items())
+    n = plain["n"]
+    forward = dict(remat["masks"][:n])
+    fwd_equal = all(i == j and torch.equal(a, b) for (i, a), (j, b) in
+                    zip(remat["masks"][:n], plain["masks"]))
+    recomputed = remat["masks"][n:]
+    rec_equal = all(torch.equal(m, forward[i]) for i, m in recomputed)
+    drops = plain["drops"] + remat["drops"]
+    say(f"[25] (a) flagship step f32 64^3 batch {REMAT_CHECK_BATCH}, "
+        f"pallas, without / with Remat: loss {plain['loss']!r} / "
+        f"{remat['loss']!r}; running averages equal {buffers_equal}; "
+        f"gradients max |diff| {grad_err:.3e} ({grad_err / largest:.3e} of "
+        f"the largest); launches {plain['counts']} / {remat['counts']}; "
+        f"{len(recomputed)} recomputed dropout masks equal to their "
+        f"forward's {rec_equal}, forward masks equal to the plain "
+        f"network's {fwd_equal}; {len(drops)} dropout launches held, "
+        f"bitwise {sum(c[0] for c in drops)}/{len(drops)}")
+    check(remat["loss"] == plain["loss"], "Remat changed the loss")
+    check(buffers_equal, "Remat changed the running averages")
+    check(grad_err <= REMAT_GRAD_RTOL * largest,
+          f"Remat's gradients are {grad_err / largest:.3e} of the largest "
+          f"off the plain network's")
+    check(plain["counts"] == {"dropout": 42, "dw_conv": 21}
+          and remat["counts"] == {"dropout": 54, "dw_conv": 21},
+          f"launches {plain['counts']} / {remat['counts']}")
+    check(len(recomputed) == 12 and rec_equal and fwd_equal,
+          "a recomputed dropout mask differs from its forward's")
+    check(len(plain["drops"]) == 42 and len(remat["drops"]) == 54
+          and all(c[0] for c in drops),
+          "a dropout launch differs from its plain version")
+    del plain, remat, drops, forward, recomputed
+    torch.cuda.empty_cache()
+
+    # (b) bf16 at a cut batch: time and memory
+    peaks = {}
+    for on in (False, True):
+        ms, peak, losses, per_step = _flagship_steps("pallas", REMAT_BATCH,
+                                                     "packed", remat=on)
+        torch.cuda.empty_cache()
+        peaks[on] = peak
+        say(f"[25] (b) flagship step bf16 64^3 batch {REMAT_BATCH}, pallas, "
+            f"Remat {on}: median {ms:.1f} ms, {REMAT_BATCH / ms * 1e3:.1f} "
+            f"patches/s, peak memory {peak / 2 ** 30:.2f} GiB, launches a "
+            f"step {per_step}; losses {losses}")
+        check(all(np.isfinite(losses)), f"losses {losses}")
+        check(per_step == {"dropout": 54 if on else 42, "dw_conv": 21},
+              f"launches a step {per_step}")
+    check(peaks[True] < peaks[False],
+          f"Remat's peak memory {peaks[True]} is not below {peaks[False]}")
+
+    # (c) the main path: config.json's training at batch 32 with Remat
+    cfg_path, ts = _remat_cases(tmp)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with _holding() as (_, held_drops):
+        state = main(["-p", "train", "--config_json", cfg_path, "--device",
+                      "cuda"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(ts["LogDir"], "train", "scalars.jsonl")) as f:
+        losses = [json.loads(line)["value"] for line in f
+                  if '"loss/0.total_loss"' in line]
+    say(f"[25] (c) python -m vnet_tpu_torch -p train, configs/config.json "
+        f"with Remat: true: {REMAT_STEPS} steps at batch "
+        f"{ts['BatchSize']}, patch {ts['PatchShape']}, on {REMAT_CASES} "
+        f"synthetic {'x'.join(map(str, LITS_CASE))} cases in {wall:.2f} s "
+        f"(data loading, build, warm-up, a checkpoint and the held plain "
+        f"dropouts included); peak memory {peak / 2 ** 30:.2f} GiB (the "
+        f"held plain dropouts' included) on a "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f} "
+        f"GiB card; losses {losses}; launches {counts}")
+    check(state.step == REMAT_STEPS and state.network.remat,
+          "the CLI did not train the Remat network")
+    check(ts["BatchSize"] == 32 and ts["PatchShape"] == [256, 256, 32],
+          "config.json's batch and patch changed")
+    check(len(losses) == REMAT_STEPS and all(np.isfinite(losses)),
+          f"losses {losses}")
+    check(counts["dropout"] == 54 * REMAT_STEPS
+          and counts["dropout"] == sum(counts.values()),
+          f"launches {counts}, expected {54 * REMAT_STEPS} dropout")
+    # forward, recompute and backward, at config.json's shapes
+    _check_held("25", [], held_drops, dict(counts, blend_accumulate=0))
+    xla = dropout_params(ts["Networks"]["Dropout"], "xla")
+    check(ts["Networks"].get("DropoutImpl", "xla") == "xla"
+          and {c[3:5] for c in held_drops} == {(xla[2], xla[0])},
+          "a dropout on the path is not config.json's xla flavour")
+    del state
+    torch.cuda.empty_cache()
+    return counts["dropout"]
+
+
+
 def run():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3188,6 +3400,11 @@ def run():
         phase_export(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_remat_")
+    try:
+        remat_drops = phase_remat(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     drop_rows, drop_sums = phase_dropout_times()
 
     def timed(shape, impl):
@@ -3217,14 +3434,16 @@ def run():
              source="vnet_tpu_torch/csrc/dropout.cu",
              replaces="vnet_tpu/ops/pallas/dropout.py:99",
              launches=(train_counts["dropout"] + att_drops + drops_2d
-                       + sp_drops + qs_drops + fl_drops),
+                       + sp_drops + qs_drops + fl_drops + remat_drops),
              launches_in="phase 7 (training, pallas flavour), phase 13 "
                          "(attention step, xla flavour), phase 15 (2D "
                          "training, xla flavour), phase 23 (the spatially "
                          "partitioned step on two ranks, pallas flavour, "
                          "row-mapped), phase 21 (the quickstart, "
-                         "xla flavour) and phase 22 (flags.train "
-                         "--attention, bits8 flavour)",
+                         "xla flavour), phase 22 (flags.train "
+                         "--attention, bits8 flavour) and phase 25 "
+                         "(config.json's training with Remat, xla "
+                         "flavour, forward, recompute and backward)",
              times_are="xla flavour at (96, 128, 32, 32, 32) bf16: device "
                        "ms a launch, the median of a profiler trace "
                        "(event_ms: CUDA events around 50 launches; call_ms: "

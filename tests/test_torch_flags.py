@@ -10,6 +10,7 @@ mesh, and refuses more than there are cards.
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 
@@ -91,6 +92,26 @@ def test_train_flags_to_config_equal_jax(tmp_path, case):
     from vnet_tpu_torch.data import build_pipeline
     assert [x.name for x in build_pipeline(a, "train", 3)] == [
         "Padding", "Random Crop"]
+
+
+@pytest.mark.parametrize("attention", [False, True])
+def test_remat_flag_reaches_the_network(tmp_path, attention):
+    """``--remat`` sets ``Networks.Remat`` and the trainer builds the
+    network with it (the attention network's backbone too), warning about
+    nothing."""
+    import warnings
+
+    from vnet_tpu_torch.train import Trainer
+
+    argv = ["--data_dir", str(tmp_path), "--log_dir", str(tmp_path / "log"),
+            "--checkpoint_dir", str(tmp_path / "ckpt"), "--remat",
+            "--device", "cpu"] + (["--attention"] if attention else [])
+    config = ttrain.flags_to_config(ttrain.get_parser().parse_args(argv))
+    assert config.train.network.remat
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        net = Trainer(config, device="cpu", log=False).network
+    assert net.remat and (not attention or net.vnet.remat)
 
 
 def test_train_flags_with_a_pipeline_and_split_dirs(tmp_path):
@@ -325,3 +346,74 @@ def test_attn_quality_steps_equal_jax(tmp_path, monkeypatch):
         assert tc[-2:] == ["--device", "cpu"]
         assert [a.replace(str(tmp_path / "port"), str(tmp_path / "jax"))
                 for a in tc[1:-2]] == jc[1:]
+
+
+# --- the LiTS rehearsal and the attention step ladder (CPU smoke modes) -----
+
+@pytest.fixture
+def one_thread():
+    """Tiny networks: one intra-op thread, so that the tests' time does not
+    grow with the other test processes' threads."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_lits_rehearsal_small_trains_and_evaluates_on_cpu(tmp_path, capsys,
+                                                          one_thread):
+    """``--small``: the JAX script's tiny chain on the CPU, its lines."""
+    from vnet_tpu_torch.experiments import lits_rehearsal
+
+    wd = tmp_path / "lits"
+    assert lits_rehearsal.main(["--small", "--steps", "2", "--workdir",
+                                str(wd)]) == 0
+    out = capsys.readouterr().out
+    assert "LITS-REHEARSAL train: 2 steps of b2 (48, 48, 16) patches" in out
+    assert "LITS-REHEARSAL eval: 1 case(s) at stride (48, 48, 16)" in out
+    assert "case_0: dice per class [" in out
+    assert (wd / "evaluate" / "case_0" / "pred.nii.gz").exists()
+    written = json.loads((wd / "config.json").read_text())
+    assert "Remat" not in written["TrainingSetting"]["Networks"]
+    full = lits_rehearsal.write_config(str(tmp_path), False, 200, 32)
+    ts = json.loads(open(full).read())["TrainingSetting"]
+    assert (ts["PatchShape"], ts["BatchSize"], ts["Precision"]) == (
+        [256, 256, 32], 32, "bfloat16")
+
+
+def test_attention_step_ladder_records_each_config(tmp_path, monkeypatch,
+                                                   one_thread):
+    """``--smoke`` measures 16^3 at batch 1 without and with ``Remat`` on
+    the CPU; a second call skips what the log holds; a configuration that
+    does not fit is recorded with its failure and the ladder goes on."""
+    import torch
+
+    from vnet_tpu_torch.experiments import attention_step
+
+    log = tmp_path / "attn.log"
+    argv = ["--log", str(log), "--smoke", "--reps", "1"]
+    assert attention_step.main(argv) == 0
+    recs = [json.loads(line) for line in log.read_text().splitlines()]
+    assert [(r["exp"], r["remat"], r["device"]) for r in recs] == [
+        ("attn_smoke", False, "cpu"), ("attn_smoke_remat", True, "cpu")]
+    assert all(r["patches_per_s"] > 0 for r in recs)
+    assert attention_step.main(argv) == 0
+    assert len(log.read_text().splitlines()) == 2
+
+    def measure(side, batch, remat, reps, device, network):
+        if not remat:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return {"patches_per_s": 1.0, "batch": batch, "side": side,
+                "remat": remat}
+
+    monkeypatch.setattr(attention_step, "measure", measure)
+    log2 = tmp_path / "ladder.log"
+    assert attention_step.main(["--log", str(log2), "--smoke"]) == 0
+    recs = [json.loads(line) for line in log2.read_text().splitlines()]
+    assert recs[0]["error"].startswith("OutOfMemoryError")
+    assert recs[1]["patches_per_s"] == 1.0
+    assert [c[0] for c in attention_step._configs(False)] == [
+        "attn_s64_b8_remat", "attn_s64_b16_remat", "attn_s48_b8",
+        "attn_s48_b8_remat", "attn_s64_b8"]

@@ -74,6 +74,8 @@ def test_port_modules_cover_the_package():
                    "parallel.spatial", "parallel.tensor",
                    "tools.dryrun_multichip", "quickstart", "flags.train",
                    "flags.evaluate", "experiments.attn_quality",
+                   "experiments.lits_rehearsal",
+                   "experiments.attention_step",
                    "utils.synthdata", "utils.batch_evaluate", "utils.bbox",
                    "utils.prepare_data", "utils.prepare_data.prepare",
                    "utils.prepare_data.__main__", "export", "native"):

@@ -28,68 +28,19 @@ import torch
 from vnet_tpu.models import build_network as jax_build_network
 from vnet_tpu.models.vnet import adaptive_factors as jax_adaptive_factors
 from vnet_tpu_torch.config import load_config
-from vnet_tpu_torch.convert import (flax_to_state_dict, grads_to_flax,
-                                    state_dict_to_flax)
+from vnet_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from vnet_tpu_torch.models import build_network, eval_apply
 
-from torch_parity import random_variables
+from torch_parity import (assert_logits_close, assert_trees_close,
+                          jax_train, port_train, random_variables)
 
 # the modules, not the functions that vnet_tpu_torch.ops re-exports
 dw_ops = importlib.import_module("vnet_tpu_torch.ops.dw_conv")
 dropout_ops = importlib.import_module("vnet_tpu_torch.ops.dropout")
 ROOT = Path(__file__).resolve().parent.parent
-RTOL, ATOL_FRACTION = 1e-4, 1e-4
 SMALL = dict(num_classes=3, num_channels=4, num_levels=2,
              num_convolutions=(1, 2), bottom_convolutions=1,
              dropout_rate=0.0)
-
-
-def _flat(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flat(v, prefix + (k,))
-        else:
-            yield prefix + (k,), np.asarray(v)
-
-
-def assert_trees_close(got, ref, what):
-    got, ref = dict(_flat(got)), dict(_flat(ref))
-    assert got.keys() == ref.keys(), what
-    atol = ATOL_FRACTION * max(np.abs(v).max() for v in ref.values())
-    for key, value in ref.items():
-        np.testing.assert_allclose(got[key], value, rtol=RTOL, atol=atol,
-                                   err_msg=f"{what} {key}")
-
-
-def jax_train(net, variables, x, cot):
-    """Logits, parameter gradients of ``sum(logits * cot)`` and the
-    updated running averages of one training-mode forward, jitted."""
-    def loss(params):
-        out, mutated = net.apply(
-            {"params": params, "batch_stats": variables["batch_stats"]},
-            jnp.asarray(x), train=True, mutable=["batch_stats"])
-        return jnp.sum(out * jnp.asarray(cot)), (out, mutated["batch_stats"])
-
-    (_, (out, stats)), grads = jax.jit(jax.value_and_grad(
-        loss, has_aux=True))(variables["params"])
-    return np.asarray(out), jax.device_get(grads), jax.device_get(stats)
-
-
-def port_train(net, variables, x, cot):
-    net.load_state_dict(flax_to_state_dict(variables), strict=True)
-    net.train()
-    out = net(torch.from_numpy(x), dropout_seed=0)
-    (out * torch.from_numpy(cot)).sum().backward()
-    grads = grads_to_flax({k: p.grad for k, p in net.named_parameters()})
-    stats = state_dict_to_flax(
-        {k: v for k, v in net.state_dict().items()
-         if k.endswith(("running_mean", "running_var"))})["batch_stats"]
-    return out.detach().numpy(), grads, stats
-
-
-def assert_logits_close(got, ref):
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL_FRACTION * scale)
 
 
 # (name, PackedTargetLanes, spatial, plan of the encoder levels and bottom)

@@ -65,6 +65,7 @@ from vnet_tpu_torch.convert import (_adam_leaf, flax_to_state_dict,
                                     grads_to_flax, state_dict_to_flax)
 from vnet_tpu_torch.data.device_aug import random_noise
 from vnet_tpu_torch.data.loader import BatchLoader
+from vnet_tpu_torch.models import build_network
 from vnet_tpu_torch.parallel import (Mesh, active_mesh, batch_rows,
                                      data_parallel, data_parallel_size,
                                      launch, make_mesh, make_multislice_mesh,
@@ -78,6 +79,9 @@ NET = dict(num_classes=2, num_channels=8, num_levels=2,
 WINDOW = dict(volume=(20, 18, 13, 1), patch=(8, 8, 8), stride=(5, 6, 4),
               batch=5)
 LAUNCH_TIMEOUT = 240.0
+# the Remat case: the network of NET with dropout on, packed at 16 lanes
+REMAT_NET = dict(NET, dropout_rate=0.2, dropout_impl="pallas",
+                 packed_target_lanes=16)
 LR = 1e-3  # the configs' Adam learning rate at step 0
 ADAM_EPS = 1e-8  # optax's and the port's
 
@@ -231,6 +235,12 @@ def _inputs(tmp):
                                    for k, v in window_vars.items()},
                    "patch": WINDOW["patch"], "stride": WINDOW["stride"],
                    "batch": WINDOW["batch"]},
+        "remat": {"net_kw": REMAT_NET, "state_dict": build_network(
+                      "VNet", device="cpu", generator=torch.Generator()
+                      .manual_seed(14), **REMAT_NET).state_dict(),
+                  "images": images,
+                  "cot": rng.normal(size=(4,) + PATCH + (2,)).astype(
+                      np.float32)},
         "stack": rng.normal(size=(5, 20, 18, 2)).astype(np.float32),
         "stack_weights": rng.normal(size=(2, 3)).astype(np.float32),
         "writes_config": _config(tmp, "writes", batch=2),
@@ -381,6 +391,30 @@ def test_two_ranks_equal_one_process_with_dropout_and_augmentation(parity):
                                  grads_to_flax(got["grads"]), ref_grads, 1e-4)
         _trees_close(tree["batch_stats"], ref_tree["batch_stats"], 1e-4,
                      "batch_stats")
+
+
+def test_remat_backward_late_and_outside_the_mesh_is_the_plain_one(parity):
+    """On each rank: a ``Remat`` network's first forward inside
+    ``data_parallel``, a second forward at another seed, then the first
+    backward outside the mesh's block; the recompute runs under the
+    forward's mesh and seeds, so its gradients are the plain network's
+    (the same sums, also across the ranks) and its running averages too.
+    The recompute reduces its batch moments over the ranks again, as JAX's
+    does under ``pjit``: 13 batch norms reduce once forward and once
+    backward (but the input's, whose moments are of the images), and the 7
+    of the blocks once more in the recompute."""
+    for rank in parity["ranks"]:
+        plain, remat = rank["remat"][False], rank["remat"][True]
+        largest = max(g.abs().max().item() for g in plain["grads"].values())
+        for k, g in plain["grads"].items():
+            err = (remat["grads"][k] - g).abs().max().item()
+            assert err <= 1e-5 * largest, (k, err)
+        for k, v in plain["state_dict"].items():
+            assert torch.equal(remat["state_dict"][k], v), k
+        assert remat["collectives"]["forward"] == plain["collectives"][
+            "forward"] == {"all_reduce": 13}
+        assert plain["collectives"]["backward"] == {"all_reduce": 12}
+        assert remat["collectives"]["backward"] == {"all_reduce": 19}
 
 
 @pytest.mark.parametrize("norm", ["batch", "batch_stats"])

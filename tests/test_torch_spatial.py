@@ -140,7 +140,8 @@ def _pipeline(tmp, patch):
 
 
 def _config(tmp, name, patch, mesh=None, optimizer="SGD", lr=1e-2,
-            dropout=0.0, batch=2, data="training", **setting):
+            dropout=0.0, batch=2, data="training", remat=False,
+            convolutions=(1, 1), **setting):
     """A 2-level, 4-channel VNet config; ``mesh``: ``(data, space)``."""
     tree = {
         "TrainingSetting": {
@@ -152,9 +153,11 @@ def _config(tmp, name, patch, mesh=None, optimizer="SGD", lr=1e-2,
             "BatchSize": batch, "PatchShape": list(patch), "Testing": False,
             "MaxIterations": 2, "LogInterval": 1, "LoaderWorkers": 0,
             "Networks": {"Name": "VNet", "Dropout": dropout, "NumChannel": 4,
-                         "NumLevels": 2, "NumConvolutions": [1, 1],
+                         "NumLevels": 2,
+                         "NumConvolutions": list(convolutions),
                          "BottomConvolutions": 1, "Norm": "batch",
-                         "DropoutImpl": "pallas", "DwImpl": "pallas"},
+                         "DropoutImpl": "pallas", "DwImpl": "pallas",
+                         "Remat": remat},
             "Loss": {"Name": "weighted_sorensen", "Weights": [0.1, 1.0]},
             "Optimizer": {"Name": optimizer, "InitialLearningRate": lr,
                           "Decay": {"Factor": 0.99, "Steps": 100}},
@@ -248,6 +251,10 @@ def _inputs(tmp):
     labels = rng.integers(0, 2, (4, 16, 16, 16)).astype(np.int32)
     inp["augmented"] = dict(config=_config(tmp, "aug", mesh=(2, 2), **aug),
                             single=_config(tmp, "aug_one", **aug),
+                            remat={r: _config(tmp, f"aug_remat_{r}",
+                                              mesh=(2, 2), remat=r,
+                                              convolutions=(1, 2), **aug)
+                                   for r in (False, True)},
                             state_dict=sd, images=images, labels=labels,
                             device_augment=((0, 1, 2), 5.0))
     # two identical cases: what the rows load differs only by the draws
@@ -487,7 +494,7 @@ def test_trainer_grid_equals_one_process_with_dropout_and_augmentation(
             [grid[(d, s)]["masks"][layer][which] for s in range(2)], axis=2)
             for d in range(2)], axis=0)
 
-    for layer, (dropped, valid) in enumerate(ref["masks"]):
+    for layer, (dropped, valid, _) in enumerate(ref["masks"]):
         got_dropped, got_valid = joined(layer, 0), joined(layer, 1)
         assert got_dropped.shape == dropped.shape, layer
         both = valid & got_valid
@@ -516,6 +523,36 @@ def test_trainer_grid_equals_one_process_with_dropout_and_augmentation(
             assert excess <= 1e-4 * largest, key
         _close_to_largest(tree["batch_stats"], ref_tree["batch_stats"], 1e-4,
                           "batch_stats")
+
+
+def test_remat_grid_equals_the_plain_grid(spatial):
+    """``Remat: true`` on the 2 x 2 grid (dropout and device augmentation
+    on, as above, two convolutions at level 2, so that a block holds a
+    dropout that is not its last): on each rank the step's loss, running
+    averages and forward masks are the plain grid's bitwise and its
+    gradients within 1e-5 of the largest; every recomputed dropout layer's
+    slab of the mask is its forward's, and the recompute's halo exchanges
+    ran in the same order on the ranks (the step would hang otherwise)."""
+    for rank in spatial["ranks"]:
+        plain, remat = rank["remat"][False], rank["remat"][True]
+        assert remat["losses"] == plain["losses"]
+        for k, v in plain["state_dict"].items():
+            if k.endswith(("running_mean", "running_var")):
+                assert torch.equal(remat["state_dict"][k], v), k
+        largest = max(g.abs().max().item() for g in plain["grads"].values())
+        for k, g in plain["grads"].items():
+            err = (remat["grads"][k] - g).abs().max().item()
+            assert err <= 1e-5 * largest, (k, err)
+        n = len(plain["masks"])
+        assert len(remat["masks"]) > n
+        forward = {}
+        for (dropped, valid, i), (d_p, v_p, i_p) in zip(remat["masks"][:n],
+                                                        plain["masks"]):
+            assert i == i_p
+            np.testing.assert_array_equal(dropped, d_p)
+            forward[i] = dropped
+        for dropped, _, i in remat["masks"][n:]:
+            np.testing.assert_array_equal(dropped, forward[i])
 
 
 def test_scan_steps_keep_the_space_axis(spatial):

@@ -161,11 +161,14 @@ def test_build_network_names_and_warnings():
     with pytest.warns(UserWarning, match="Dense does not implement Remat"):
         build_network("Dense", num_classes=2, device="cpu", remat=True,
                       patch_shape=(4, 4, 4))
-    with pytest.warns(UserWarning, match="Remat is not ported"):
-        build_network("VNet", num_classes=2, device="cpu", num_levels=1,
-                      num_convolutions=(1,), remat=True)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
+        for name in ("VNet", "VNetLegacy", "AttentionVNet"):
+            remat = build_network(name, num_classes=2, device="cpu",
+                                  num_levels=1, num_convolutions=(1,),
+                                  remat=True)
+            assert remat.remat
+        assert remat.vnet.remat
         net = build_network("VNetLegacy", num_classes=2, device="cpu")
     assert net.conv_impl == "packed" and net.packed_target_lanes == 128
     assert hasattr(net.encoder_level_1, "pre_norm_1")

@@ -20,6 +20,7 @@ from vnet_tpu_torch.models.layers import (BatchNorm, Dropout,
                                           TiledInputBatchNorm)
 from vnet_tpu_torch.ops.metrics import batch_metrics
 from vnet_tpu_torch.parallel import batch_rows, data_parallel, make_mesh
+from vnet_tpu_torch.tools.profile_step import count_collectives
 from vnet_tpu_torch.train import Trainer, checkpoints
 from vnet_tpu_torch.train import trainer as trainer_module
 
@@ -117,6 +118,39 @@ def stacked_window_run(volume, weights, mesh=None):
     return acc.numpy(), weight.numpy()
 
 
+def remat_run(net_kw, state_dict, images, cot, mesh):
+    """Per ``Remat`` off and on: two training-mode forwards inside
+    ``data_parallel(mesh)`` (dropout seeds 1 and 2, the second on the
+    images reversed along the batch), then the first forward's backward of
+    ``sum(out * cot)`` outside it: the gradients, the state dict and the
+    collectives called by the first forward and by the backward."""
+    out = {}
+    counts, restore = count_collectives()
+    try:
+        for remat in (False, True):
+            net = build_network("VNet", device="cpu", remat=remat, **net_kw)
+            net.load_state_dict(state_dict)
+            net.train()
+            x = torch.from_numpy(images)
+            counts.clear()
+            with data_parallel(mesh):
+                first = (net(x, dropout_seed=1) * torch.from_numpy(cot)).sum()
+                forward = dict(counts)
+                net(x.flip(0), dropout_seed=2)
+            counts.clear()
+            first.backward()
+            out[remat] = {
+                "grads": {k: p.grad.clone()
+                          for k, p in net.named_parameters()},
+                "state_dict": {k: v.clone()
+                               for k, v in net.state_dict().items()},
+                "collectives": {"forward": forward,
+                                "backward": dict(counts)}}
+    finally:
+        restore()
+    return out
+
+
 def _recording_writes(trainer, record):
     """Count what ``trainer`` writes: checkpoints, the sidecar and the log
     directories it opens."""
@@ -164,6 +198,11 @@ def parity_ranks(workdir):
     out["metrics"] = {k: float(v) for k, v in batch_metrics(
         torch.from_numpy(logits[lo:hi]), torch.from_numpy(labels[lo:hi]),
         logits.shape[-1], compute_auc=True, reduce=mesh.sum).items()}
+
+    rm = inp["remat"]
+    lo, hi = batch_rows(mesh, len(rm["images"]))
+    out["remat"] = remat_run(rm["net_kw"], rm["state_dict"],
+                             rm["images"][lo:hi], rm["cot"][lo:hi], mesh)
 
     step = inp["step"]
     out["step"] = trainer_step(step["config"], step["state_dict"],

@@ -73,13 +73,15 @@ def train_run(mesh, case):
 
 
 def dropout_masks(net):
-    """Forward hooks recording each dropout layer's ``(dropped, valid)``
-    bool arrays in the logical ``(B, C, *spatial)`` layout."""
+    """Forward hooks recording each dropout call's ``(dropped, valid,
+    layer index)``, the two bool arrays in the logical ``(B, C, *spatial)``
+    layout (a recomputed layer's calls follow the forward's)."""
     records = []
 
     def hook(module, inputs, out):
         x = inputs[0]
-        records.append((((out == 0) & (x != 0)).numpy(), (x != 0).numpy()))
+        records.append((((out == 0) & (x != 0)).numpy(), (x != 0).numpy(),
+                        module.index))
 
     handles = [m.register_forward_hook(hook) for m in net.modules()
                if isinstance(m, Dropout)]
@@ -89,11 +91,13 @@ def dropout_masks(net):
 def trainer_steps(config_path, state_dict, images, labels, seeds,
                   device_augment=None, masks=False):
     """``Trainer.train_step`` for each seed on this rank's rows (whole
-    patches; the trainer keeps its slab): logged values, the state dict
+    patches; the trainer keeps its slab), from ``state_dict`` (``None``:
+    the trainer's own initial weights): logged values, the state dict
     after the steps, the last step's gradients and, with ``masks``, every
     dropout layer's mask of the last step."""
     trainer = Trainer(load_config(config_path), device="cpu", log=False)
-    trainer.network.load_state_dict(state_dict)
+    if state_dict is not None:  # else the trainer's seeded weights
+        trainer.network.load_state_dict(state_dict)
     trainer._device_aug = device_augment
     state = trainer.init_state()
     lo, hi = trainer.rows
@@ -163,6 +167,10 @@ def spatial_ranks(workdir):
     out["augmented"] = trainer_steps(aug["config"], aug["state_dict"],
                                      aug["images"], aug["labels"], (3,),
                                      aug["device_augment"], masks=True)
+    out["remat"] = {r: trainer_steps(
+        path, None, aug["images"], aug["labels"], (3,),
+        aug["device_augment"], masks=True)
+        for r, path in aug["remat"].items()}
     scan = inp["scan"]
     out["scan"] = trained(scan["config"], scan["state_dict"])
     out["draws"] = host_draws(inp["draws"])

@@ -17,10 +17,12 @@ command lines:
 
 Resumable: the flag CLI restores the newest checkpoint by default, so a
 second call continues the run. ``--remat`` is passed on to the trainer,
-which accepts and ignores it (the JAX script retries with it after an
-out-of-memory failure; the port has no such retry). ``--small`` is a tiny
-CPU-sized chain (48^3 volumes, 32^3 patches, 4 cases) that checks the
-steps, not the quality. ``--device`` (default ``cuda``) goes to both CLIs.
+which recomputes the conv blocks and the attention heads in the backward
+pass (the JAX script retries with it after an out-of-memory failure; the
+port has no such retry: on the card the run at batch 8 fits without
+it). ``--small`` is a tiny CPU-sized chain (48^3 volumes, 32^3
+patches, 4 cases) that checks the steps, not the quality. ``--device``
+(default ``cuda``) goes to both CLIs.
 
     python -m vnet_tpu_torch.experiments.attn_quality --workdir tmp/attn
     python -m vnet_tpu_torch.experiments.attn_quality --small --steps 2 \\
@@ -117,7 +119,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=6000)
     ap.add_argument("--dropout_impl", default="bits8")
     ap.add_argument("--remat", action="store_true",
-                    help="passed on to the trainer, which ignores it")
+                    help="passed on to the trainer: recompute the conv "
+                         "blocks and heads in backward (Networks.Remat)")
     ap.add_argument("--train-only", action="store_true")
     ap.add_argument("--small", action="store_true",
                     help="tiny CPU-sized chain (48^3 volumes, 32^3 patches, "

@@ -5,8 +5,8 @@ flags and the same ``flags_to_config`` tree, parsed by the port's
 variant is ``--attention``. ``--device`` (default ``cuda``; ``cpu`` only
 when asked) takes the place of the JAX platform environment; training runs
 in this process on that device (``python -m vnet_tpu_torch --devices N``
-trains data-parallel). ``--remat`` is accepted and warned about, as the
-port's ``Remat`` is.
+trains data-parallel). ``--remat`` sets ``Networks.Remat``: the network's
+conv blocks (and the attention heads) are recomputed in the backward pass.
 
     python -m vnet_tpu_torch.flags.train --data_dir ./data --patch_size 64 \
         --patch_layer 64 --loss_function sorensen --optimizer adam --attention
@@ -73,8 +73,9 @@ def get_parser():
                    help="dropout flavour (Networks.DropoutImpl); every "
                         "flavour runs the port's dropout kernel on the card")
     p.add_argument("--remat", action="store_true",
-                   help="Networks.Remat: accepted and ignored by the port, "
-                        "with a warning")
+                   help="rematerialize conv blocks (Networks.Remat): "
+                        "recompute them in the backward pass, trading "
+                        "step time for activation memory")
     p.add_argument("--cache_cases", type=int, default=0,
                    help="cache up to N loaded + deterministic-prefix-"
                         "transformed cases in the loader "

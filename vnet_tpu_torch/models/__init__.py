@@ -57,9 +57,10 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
     and ``conv_impl``, ``packed_target_lanes``, ``legacy_double_norm`` and
     ``dw_impl`` to the backbone. ``spatial_rank`` (2 or 3) is the number of
     spatial axes, ``len(PatchShape)``; ``Dense`` needs ``patch_shape`` (its
-    output layer has one unit per voxel and class). ``remat`` is not
-    ported: it warns and is ignored, as ``DropoutImpl``, ``DwImpl`` and
-    ``Remat`` are on UNet and Dense in JAX."""
+    output layer has one unit per voxel and class). ``remat`` recomputes
+    the conv blocks of ``VNet`` and ``VNetLegacy`` and, of
+    ``AttentionVNet``, also both heads in the backward pass; UNet and Dense
+    warn and ignore it, with ``DropoutImpl`` and ``DwImpl``, as in JAX."""
     device = resolve_device(device)
     if name == "FCN":
         raise NotImplementedError("Network to be developed")
@@ -77,9 +78,6 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
         if unsupported:
             warnings.warn(f"{name} does not implement "
                           f"{', '.join(unsupported)}; ignoring", stacklevel=2)
-    elif remat:
-        warnings.warn("Remat is not ported to PyTorch (ROADMAP.md); "
-                      "ignoring", stacklevel=2)
     if name == "UNet":
         net = UNet(num_classes=num_classes, in_channels=in_channels,
                    num_channels=num_channels, num_levels=num_levels,
@@ -110,7 +108,8 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
               norm=norm, dtype=dtype, generator=generator,
               dropout_impl=dropout_impl, dw_impl=dw_impl,
               conv_impl=conv_impl, packed_target_lanes=packed_target_lanes,
-              legacy_double_norm=legacy_double_norm or name == "VNetLegacy")
+              legacy_double_norm=legacy_double_norm or name == "VNetLegacy",
+              remat=remat)
     if name == "AttentionVNet":
         net = AttentionGatedVNet(attention_channels=attention_channels, **kw)
     else:

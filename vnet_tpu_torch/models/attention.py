@@ -24,6 +24,10 @@ heads use ReLU, as the JAX heads' default. Every dropout layer runs the
 port's ``Dropout`` (the CUDA kernel on the card); the layers are numbered
 across the whole network when it is built, the backbone's first, so each
 has its own stream.
+
+``remat`` recomputes the attention and output modules in the backward
+pass and passes ``remat`` to the backbone, which recomputes its conv
+blocks (``vnet_tpu/models/attention.py:166-203``; ``layers.recomputed``).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import Activation, Dropout, Norm, SpatialConv
+from .layers import Activation, Dropout, Norm, SpatialConv, recomputed
 from .vnet import VNet
 
 TRUNCATED_NORMAL_STDDEV = 0.1
@@ -128,7 +132,8 @@ class AttentionGatedVNet(nn.Module):
     """V-Net backbone + attention gate + output refinement. ``conv_impl``,
     ``packed_target_lanes``, ``legacy_double_norm`` and ``dw_impl`` go to
     the backbone (``vnet_tpu/models/attention.py:174-190``); the heads'
-    convolutions stay direct, as JAX's ``nn.Conv`` heads are."""
+    convolutions stay direct, as JAX's ``nn.Conv`` heads are. ``remat``
+    goes to the backbone and recomputes both heads."""
 
     def __init__(self, num_classes: int, in_channels: int = 1,
                  num_channels: int = 16, num_levels: int = 4,
@@ -139,9 +144,10 @@ class AttentionGatedVNet(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dropout_impl: str = "xla", dw_impl: str = "xla",
                  conv_impl: str = "direct", packed_target_lanes: int = 0,
-                 legacy_double_norm: bool = False):
+                 legacy_double_norm: bool = False, remat: bool = False):
         super().__init__()
         self.norm = norm
+        self.remat = remat
         self.vnet = VNet(num_classes=num_classes, in_channels=in_channels,
                          num_channels=num_channels, num_levels=num_levels,
                          num_convolutions=num_convolutions,
@@ -151,7 +157,7 @@ class AttentionGatedVNet(nn.Module):
                          dropout_impl=dropout_impl, dw_impl=dw_impl,
                          conv_impl=conv_impl,
                          packed_target_lanes=packed_target_lanes,
-                         legacy_double_norm=legacy_double_norm)
+                         legacy_double_norm=legacy_double_norm, remat=remat)
         head = dict(num_channels=attention_channels, norm=norm,
                     dropout_rate=dropout_rate, dtype=dtype,
                     generator=generator, dropout_impl=dropout_impl)
@@ -165,9 +171,11 @@ class AttentionGatedVNet(nn.Module):
         for m in self.dropouts:
             m.seed = dropout_seed
         logits_vnet = self.vnet(x, dropout_seed=dropout_seed)
-        attention_logits = self.attention(logits_vnet)
+        attention_logits = recomputed(self.attention, logits_vnet,
+                                      enabled=self.remat)
         gate = 1.0 + torch.softmax(attention_logits, dim=-1)
-        logits = self.output_module(gate * logits_vnet)
+        logits = recomputed(self.output_module, gate * logits_vnet,
+                            enabled=self.remat)
         return logits, attention_logits
 
 

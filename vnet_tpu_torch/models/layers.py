@@ -49,6 +49,19 @@ over the mesh (or over the partition without one), group and instance
 norm over the partition, and dropout draws the rank's slab of the
 unsharded tensor's mask through the counter's row map.
 
+Recomputation (``Networks.Remat``; flax's ``nn.remat``): :func:`recomputed`
+runs a block through ``torch.utils.checkpoint`` (non-reentrant) in train
+mode with gradients on, so that its activations are made again in the
+backward pass instead of kept. The recompute sees what the forward saw,
+captured when the block ran forward: every dropout layer's seed (its mask
+map follows from the mesh and the partition), the active mesh, the
+partition and the modules' train modes; batch norms do not fold the
+recompute's statistics into their running averages (:func:`recomputing`),
+so they move once a step, as in flax. Under a mesh the recompute reduces
+its batch moments over the ranks again, as JAX's recompute under ``pjit``
+does, and exchanges its halos again, in the forward's order on every rank.
+Eval mode, ``inference_mode`` and ``no_grad`` run the block as it is.
+
 Packed domain (``ops/s2d.py``): a tensor of ``groups * C`` channels,
 offset-major. Whether a layer runs packed depends on the input's extents,
 which JAX decides when it traces; here the owning network decides it at
@@ -62,12 +75,15 @@ JAX's checkpoints interchange between them.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv_vjp import conv_custom_dw
 from ..ops.conv_vjp import same_pads as stride1_pads
@@ -77,8 +93,9 @@ from ..ops.s2d import (conv_padded, norm_factors, packed_conv,
                        packed_down_conv, prod_factors, s2d_conv,
                        s2d_down_conv, s2d_up_conv)
 from ..parallel.mesh import (active_mesh, all_reduce_mean,
-                             group_all_reduce_mean)
-from ..parallel.spatial import current_partition, halo_exchange_asym
+                             group_all_reduce_mean, mesh_scope)
+from ..parallel.spatial import (current_partition, halo_exchange_asym,
+                                partition_scope)
 
 NORM_KINDS = ("batch", "batch_stats", "group", "instance", "none")
 ACTIVATIONS = ("relu", "prelu", "lrelu")
@@ -89,6 +106,83 @@ DW_IMPLS = ("xla", "custom", "pallas")
 CONV_IMPLS = ("direct", "s2d", "auto")
 _CONV = {2: F.conv2d, 3: F.conv3d}  # by spatial rank
 _CONV_TRANSPOSE = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
+
+
+_RECOMPUTING: contextvars.ContextVar = contextvars.ContextVar(
+    "vnet_recomputing", default=False)
+
+
+def recomputing() -> bool:
+    """Whether the code runs in a block's recompute (:func:`recomputed`)."""
+    return _RECOMPUTING.get()
+
+
+def recomputed(module: nn.Module, *args, enabled: bool = True, **kwargs):
+    """``module(*args, **kwargs)``, its activations recomputed in the
+    backward pass instead of kept (flax's ``nn.remat``), where that does
+    something: ``enabled`` (``Networks.Remat``), in train mode with
+    gradients on; otherwise the plain call. Only the block's inputs are
+    saved; the recompute runs under what the forward saw (:class:`_Seen`).
+    Nothing in a block draws from torch's generators (dropout is keyed by
+    counters), so their states are not stashed."""
+    if not (enabled and module.training and torch.is_grad_enabled()):
+        return module(*args, **kwargs)
+    return checkpoint(module, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=_Seen(module).contexts, **kwargs)
+
+
+class _Seen:
+    """What a block saw when it ran forward, for its recompute, which may
+    run late (after a later forward set other seeds) and out of context
+    (outside ``data_parallel``, or on autograd's device thread, which
+    inherits no context variables): each dropout layer's seed, each
+    module's train mode, the active mesh and the partition. A context
+    manager around the recompute, entered once a backward over the graph
+    (again for a second backward over a retained graph)."""
+
+    def __init__(self, module: nn.Module):
+        self.modes = [(m, m.training) for m in module.modules()]
+        self.seeds = [(m, m.seed) for m, _ in self.modes
+                      if isinstance(m, Dropout)]
+        self.mesh = active_mesh()
+        self.partition = current_partition()
+        self.entries = []  # per entry: (modes, seeds, token, scopes) to undo
+
+    def contexts(self):
+        """``torch.utils.checkpoint``'s ``context_fn``: nothing around the
+        forward, this object around the recompute."""
+        return contextlib.nullcontext(), self
+
+    def __enter__(self):
+        modes = [(m, m.training) for m, _ in self.modes]
+        seeds = [(m, m.seed) for m, _ in self.seeds]
+        for m, mode in self.modes:
+            m.training = mode
+        for m, seed in self.seeds:
+            m.seed = seed
+        token = _RECOMPUTING.set(True)
+        scopes = contextlib.ExitStack()
+        self.entries.append((modes, seeds, token, scopes))
+        try:
+            scopes.enter_context(mesh_scope(self.mesh))
+            scopes.enter_context(partition_scope(self.partition))
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        return self
+
+    def __exit__(self, *exc):
+        modes, seeds, token, scopes = self.entries.pop()
+        try:
+            scopes.close()
+        finally:
+            _RECOMPUTING.reset(token)
+            for m, mode in modes:
+                m.training = mode
+            for m, seed in seeds:
+                m.seed = seed
+        return False
 
 
 def _channel_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -178,7 +272,8 @@ class BatchNorm(nn.Module):
 
     ``use_running_average`` selects the stored statistics; otherwise the
     statistics of the batch itself are used and, in training mode, folded
-    into the running averages (:meth:`update_running`).
+    into the running averages (:meth:`update_running`), but not in a
+    block's recompute (:func:`recomputed`).
 
     ``groups > 1``: JAX's ``PackedBatchNorm`` — the input holds ``groups *
     C`` packed channels and the statistics reduce over batch, packed
@@ -203,7 +298,7 @@ class BatchNorm(nn.Module):
         else:
             mean, sq = batch_moments(xf, (0,) + tuple(range(2, x.ndim)))
             var = torch.clamp_min(sq - mean.square(), 0.0)
-            if self.training:
+            if self.training and not recomputing():
                 self.update_running(mean, var)
         mul = torch.rsqrt(var + _EPS) * self.weight
         y = ((xf - _channel_view(mean, x.ndim)) * _channel_view(mul, x.ndim)
@@ -219,7 +314,7 @@ class BatchNorm(nn.Module):
         else:
             mean, sq = batch_moments(xf, (0, 1) + tuple(range(3, xf.ndim)))
             var = sq - mean.square()
-            if self.training:
+            if self.training and not recomputing():
                 self.update_running(mean, var)
         view = (1, 1, c) + (1,) * (x.ndim - 2)
         mul = torch.rsqrt(var + _EPS) * self.weight
@@ -344,7 +439,7 @@ class TiledInputBatchNorm(nn.Module):
             mu, sq = batch_moments(x1.float())
             var_s = sq - mu.square()
             mean, var = mu.expand(c), var_s.expand(c)
-            if self.training:
+            if self.training and not recomputing():
                 bn.update_running(mean, var)
         inv = torch.rsqrt(var + _EPS) * bn.weight
         shift = bn.bias - mean * inv

@@ -59,6 +59,14 @@ CUDA kernel, which is rank-3 only, so a 2D network keeps autograd's weight
 gradient, as JAX's does). The dropout layers are numbered in module order
 when the network is built, and ``forward(x, dropout_seed=s)`` keys each
 layer's mask by ``(s, number)``.
+
+``remat`` (``Networks.Remat``): every ``ConvBlock`` and
+``DecoderConvBlock`` (the encoder levels, the bottom and the decoder
+levels, packed or direct, 2D or 3D) is recomputed in the backward pass
+(``layers.recomputed``), the boundaries of JAX's ``nn.remat``: the blocks
+keep their inputs, not their activations. Same parameters and buffers,
+same outputs, gradients, masks and running averages; in eval mode, under
+``inference_mode`` and in ``torch.export`` the network is the plain one.
 """
 
 from __future__ import annotations
@@ -72,7 +80,7 @@ from ..ops.s2d import (depth_to_space, norm_factors, prod_factors,
                        space_to_depth)
 from ..parallel.spatial import current_partition
 from .layers import (Activation, DownConv, Dropout, Norm, SpatialConv,
-                     TiledInputBatchNorm, UpConv)
+                     TiledInputBatchNorm, UpConv, recomputed)
 
 # the channels-last memory format of the network's tensors, by spatial rank
 _MEMORY_FORMAT = {2: torch.channels_last, 3: torch.channels_last_3d}
@@ -207,9 +215,9 @@ class VNet(nn.Module):
     running averages or batch statistics follows ``norm`` and the module's
     train/eval mode (``Norm``). In training mode with dropout,
     ``dropout_seed`` (an int, the step's seed) is required. ``conv_impl``,
-    ``packed_cap``, ``packed_target_lanes`` and ``legacy_double_norm``
-    as in JAX's ``VNet`` (module docstring); the class defaults are JAX's
-    class defaults, ``build_network``'s are the trainer's.
+    ``packed_cap``, ``packed_target_lanes``, ``legacy_double_norm`` and
+    ``remat`` as in JAX's ``VNet`` (module docstring); the class defaults
+    are JAX's class defaults, ``build_network``'s are the trainer's.
     """
 
     def __init__(self, num_classes: int, in_channels: int = 1,
@@ -222,7 +230,7 @@ class VNet(nn.Module):
                  dropout_impl: str = "xla", dw_impl: str = "xla",
                  spatial_rank: int = 3, conv_impl: str = "direct",
                  packed_cap: int = 1024, packed_target_lanes: int = 0,
-                 legacy_double_norm: bool = False):
+                 legacy_double_norm: bool = False, remat: bool = False):
         super().__init__()
         if num_levels != len(num_convolutions):
             raise ValueError("num_convolutions must have num_levels entries")
@@ -240,6 +248,7 @@ class VNet(nn.Module):
         self.conv_impl = conv_impl
         self.packed_cap = packed_cap
         self.packed_target_lanes = packed_target_lanes
+        self.remat = remat
         # vnet_tpu/models/vnet.py:305-311
         self.block_impl = "auto" if conv_impl == "s2d" else conv_impl
         impl = "auto" if self.block_impl in ("packed", "auto") else "direct"
@@ -346,13 +355,16 @@ class VNet(nn.Module):
                          else x.shape[2:])
         skips = []
         for level, (enc_p, enc_f) in enumerate(plan["encoder"]):
-            x = getattr(self, f"encoder_level_{level + 1}")(
-                x, enc_f if enc_p else None, unpack_output=not enc_p)
+            # recomputed under remat: vnet_tpu/models/vnet.py:285-298
+            x = recomputed(getattr(self, f"encoder_level_{level + 1}"), x,
+                           enc_f if enc_p else None, unpack_output=not enc_p,
+                           enabled=self.remat)
             skips.append(x)
             x = getattr(self, f"down_{level + 1}")(
                 x, packed_input=enc_p, packed_factors=enc_f)
         bot_p, bot_f = plan["bottom"]
-        x = self.bottom(x, bot_f if bot_p else None)
+        x = recomputed(self.bottom, x, bot_f if bot_p else None,
+                       enabled=self.remat)
 
         for level in reversed(range(self.num_levels)):
             dec_p, dec_f = plan["decoder"][level]
@@ -361,10 +373,12 @@ class VNet(nn.Module):
                 raise AssertionError((skip_f, dec_f))
             x = getattr(self, f"up_{level + 1}")(
                 x, packed_output=dec_p, packed_factors=dec_f)
-            x = getattr(self, f"decoder_level_{level + 1}")(
-                x, skips[level], packed_mode=dec_p, skip_packed=skip_p,
+            x = recomputed(
+                getattr(self, f"decoder_level_{level + 1}"), x, skips[level],
+                packed_mode=dec_p, skip_packed=skip_p,
                 x_packed=dec_p, unpack_output=not (dec_p and level == 0),
-                packed_factors=dec_f if dec_p else skip_f)
+                packed_factors=dec_f if dec_p else skip_f,
+                enabled=self.remat)
 
         # a packed last decoder level feeds the output conv and norm packed
         out_packed, out_factors = plan["decoder"][0]

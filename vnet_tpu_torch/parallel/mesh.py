@@ -375,21 +375,31 @@ def data_parallel(mesh: Optional[Mesh]):
     planned on the global extents). A mesh of one rank, or ``None``,
     changes nothing."""
     active = mesh if mesh is not None and mesh.parallel else None
-    token = _ACTIVE.set(active)
-    try:
+    with mesh_scope(active):
         if active is not None and active.space > 1:
             from .spatial import mesh_partition_scope
             with mesh_partition_scope(active):
                 yield
         else:
             yield
-    finally:
-        _ACTIVE.reset(token)
 
 
 def active_mesh() -> Optional[Mesh]:
     """The mesh :func:`data_parallel` set, if it has more than one rank."""
     return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def mesh_scope(mesh: Optional[Mesh]):
+    """Make ``mesh``, a value :func:`active_mesh` gave (``None`` too), the
+    active mesh of the code inside, and nothing else: no partition is
+    entered. A recomputed block (``models/layers.py::recomputed``) runs
+    under the mesh and the partition its forward saw, each as it was."""
+    token = _ACTIVE.set(mesh)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
 
 
 def group_mean(x: torch.Tensor, group, size: int) -> torch.Tensor:

@@ -94,15 +94,21 @@ def mesh_partition(mesh, spatial_axis: int = 0,
 
 
 @contextlib.contextmanager
-def spatial_partition_scope(mesh, spatial_axis: int,
-                            global_plan: bool = False):
-    """Run the code inside on this rank's slab of ``mesh``'s space axis,
-    sharded along ``spatial_axis``."""
-    token = _CTX.set(mesh_partition(mesh, spatial_axis, global_plan))
+def partition_scope(part: Optional[Partition]):
+    """Make ``part``, a value :func:`current_partition` gave (``None``
+    too), the active partition of the code inside."""
+    token = _CTX.set(part)
     try:
         yield
     finally:
         _CTX.reset(token)
+
+
+def spatial_partition_scope(mesh, spatial_axis: int,
+                            global_plan: bool = False):
+    """Run the code inside on this rank's slab of ``mesh``'s space axis,
+    sharded along ``spatial_axis``."""
+    return partition_scope(mesh_partition(mesh, spatial_axis, global_plan))
 
 
 def mesh_partition_scope(mesh):

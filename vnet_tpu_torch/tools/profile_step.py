@@ -6,6 +6,8 @@
     python -m vnet_tpu_torch.tools.profile_step --config2d --impl xla
     python -m vnet_tpu_torch.tools.profile_step --conv_impl direct
     python -m vnet_tpu_torch.tools.profile_step --group [--rounds 3]
+    python -m vnet_tpu_torch.tools.profile_step --impl xla \
+        --patch 256 256 32 --batch 32 24 16 [--remat]
 
 Builds ``bench.py``'s flagship training step (the 3D V-Net of
 ``configs/config.json`` at full width, bf16, 64^3 patches, weighted
@@ -32,12 +34,19 @@ flagship step at world size 1, inside a process group of one rank (``nccl``,
 the trainer's mesh, as ``python -m vnet_tpu_torch --devices 0`` runs on one
 card), against the same process's step without a process group, in turns
 (none, group, group, none per round), and counts the collectives the
-grouped steps call (there must be none). Needs a CUDA card.
+grouped steps call (there must be none). ``--remat`` builds the network
+with ``Networks.Remat`` (its conv blocks, and the attention heads,
+recomputed in the backward pass); ``--patch X Y Z`` sets the flagship
+step's patch (``configs/config.json``'s step is ``--impl xla --patch 256
+256 32 --batch 32``). Several ``--batch`` values run one after another; a
+batch that does not fit in the card's memory is reported as such and the
+next one runs. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import statistics
 import subprocess
 import time
@@ -48,6 +57,8 @@ import torch
 
 from ..config import LossConfig, OptimizerConfig
 from ..models import build_network
+from ..ops.dropout import dropout_apply
+from ..ops.dw_conv import dw_conv
 from ..parallel.mesh import batch_rows
 from ..profiler import device_busy
 from ..train import TrainState, make_train_step
@@ -81,7 +92,7 @@ CONV_IMPLS = ("packed", "direct")
 def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
                   patch=PATCH, conv_impl: str = "packed", mesh=None,
                   dtype=torch.bfloat16, compute_metrics: bool = False,
-                  dw_impl=None):
+                  dw_impl=None, remat: bool = False):
     """``(state, step_fn, images, labels)`` of the flagship workload;
     ``batch`` is the global batch, and with a ``mesh`` the step is the
     mesh's and the tensors are the rank's rows (and, with a space axis, its
@@ -90,7 +101,7 @@ def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
                         norm="batch", dtype=dtype, device=device,
                         generator=torch.Generator().manual_seed(seed),
                         dropout_impl=impl, dw_impl=dw_impl or impl,
-                        conv_impl=conv_impl)
+                        conv_impl=conv_impl, remat=remat)
     opt, schedule = build_optimizer(
         OptimizerConfig(name="Adam", initial_learning_rate=1e-2,
                         decay_factor=0.99, decay_steps=100),
@@ -110,14 +121,16 @@ def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
 
 
 def attention_step(impl: str, batch: int, device="cuda", seed: int = 0,
-                   patch=PATCH, conv_impl: str = "packed"):
+                   patch=PATCH, conv_impl: str = "packed",
+                   remat: bool = False):
     """``(state, step_fn, images, labels)`` of the attention-gated step;
     ``step_fn`` carries the step's distance maps."""
     net = build_network("AttentionVNet", num_classes=2, in_channels=2,
                         dropout_rate=0.01, norm="batch", dtype=torch.bfloat16,
                         device=device,
                         generator=torch.Generator().manual_seed(seed),
-                        dropout_impl=impl, dw_impl=impl, conv_impl=conv_impl)
+                        dropout_impl=impl, dw_impl=impl, conv_impl=conv_impl,
+                        remat=remat)
     opt, schedule = build_optimizer(
         OptimizerConfig(name="Adam", initial_learning_rate=1e-2,
                         decay_factor=0.99, decay_steps=100),
@@ -141,7 +154,8 @@ def attention_step(impl: str, batch: int, device="cuda", seed: int = 0,
 
 
 def config2d_step(impl: str, batch: int, device="cuda", seed: int = 0,
-                  patch=PATCH_2D, conv_impl: str = "packed"):
+                  patch=PATCH_2D, conv_impl: str = "packed",
+                  remat: bool = False):
     """``(state, step_fn, images, labels)`` of ``configs/config_2d.json``'s
     step: the 2D V-Net at full width (16 channels, 4 levels, convolutions
     (1, 2, 3, 3), bottom 3, PReLU, batch norm, dropout 0.01), bf16, 256^2
@@ -150,7 +164,7 @@ def config2d_step(impl: str, batch: int, device="cuda", seed: int = 0,
                         norm="batch", dtype=torch.bfloat16, device=device,
                         generator=torch.Generator().manual_seed(seed),
                         dropout_impl=impl, dw_impl=impl, spatial_rank=2,
-                        conv_impl=conv_impl)
+                        conv_impl=conv_impl, remat=remat)
     opt, schedule = build_optimizer(
         OptimizerConfig(name="Adam", initial_learning_rate=1e-2,
                         decay_factor=0.99, decay_steps=100),
@@ -266,61 +280,18 @@ def find_ops(prof, fragment: str):
     return dict(found)
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(prog="python -m vnet_tpu_torch.tools."
-                                          "profile_step")
-    parser.add_argument("--batch", type=int, default=None,
-                        help="patches per step (96; 32 with --config2d)")
-    parser.add_argument("--impl", default="pallas",
-                        choices=["pallas", "bits8", "xla"])
-    parser.add_argument("--steps", type=int, default=3)
-    parser.add_argument("--conv_impl", default="packed", choices=CONV_IMPLS,
-                        help="the network's convolutions (the trainer's "
-                             "default: packed)")
-    parser.add_argument("--find", default=None, metavar="FRAGMENT",
-                        help="name the operators whose kernels hold it")
-    mode = parser.add_mutually_exclusive_group()
-    mode.add_argument("--attention", action="store_true",
-                      help="the attention-gated step instead")
-    mode.add_argument("--config2d", action="store_true",
-                      help="configs/config_2d.json's 2D step instead")
-    mode.add_argument("--group", action="store_true",
-                      help="the flagship step in a process group of one "
-                           "rank against none, in turns")
-    parser.add_argument("--rounds", type=int, default=3,
-                        help="--group: rounds of none, group, group, none")
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step needs a CUDA card")
-    if args.attention:
-        build, what, shape = attention_step, "attention step", "64^3"
-    elif args.config2d:
-        build, what, shape = config2d_step, "config_2d.json step", "256^2"
-    else:
-        build, what, shape = flagship_step, "flagship step", "64^3"
-    if args.batch is None:
-        args.batch = BATCH_2D if args.config2d else 96
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    if args.group:
-        print(f"card: {smi}")
-        readings, collectives = group_vs_none(
-            args.impl, args.batch, args.steps, args.rounds, args.conv_impl)
-        for kind, ms in readings.items():
-            q = statistics.quantiles(ms, n=4)
-            print(f"flagship step, conv_impl {args.conv_impl}, impl "
-                  f"{args.impl}, batch {args.batch}, {kind:5s}: median "
-                  f"{statistics.median(ms):.2f} ms, quartiles {q[0]:.2f} "
-                  f"{q[2]:.2f}, min {min(ms):.2f} max {max(ms):.2f} over "
-                  f"{len(ms)} steps: {[round(t, 2) for t in ms]}")
-        print(f"collectives called by the grouped steps: {collectives}")
-        return
-    state, step, images, labels = build(args.impl, args.batch,
-                                        conv_impl=args.conv_impl)
+def profile(build, what, shape, args, batch, smi):
+    """Time and profile one configuration at ``batch`` and print it."""
+    kw = dict(conv_impl=args.conv_impl, remat=args.remat)
+    if args.patch:
+        kw["patch"] = tuple(args.patch)
+    state, step, images, labels = build(args.impl, batch, **kw)
     torch.cuda.reset_peak_memory_stats()
+    counters = (dropout_apply, dw_conv)
+    before = [c.launches for c in counters]
     times, losses = timed_steps(state, step, images, labels, 1 + args.steps)
+    launches = {c.__name__: (c.launches - b) / (1 + args.steps)
+                for c, b in zip(counters, before)}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts,
@@ -330,14 +301,14 @@ def main(argv=None):
     span, busy, groups, kernels = breakdown(prof)
     copies = sum(1 for e in prof.events() if e.name == "aten::copy_")
     print(f"card: {smi}")
-    print(f"{what}, conv_impl {args.conv_impl}, impl {args.impl}, batch "
-          f"{args.batch}, {shape} bf16: "
-          f"step ms "
+    print(f"{what}, conv_impl {args.conv_impl}, impl {args.impl}, remat "
+          f"{args.remat}, batch {batch}, {shape} bf16: step ms "
           f"{[round(t, 1) for t in times]} (first is warm-up), median "
           f"{statistics.median(times[1:]):.1f} ms, "
-          f"{args.batch / statistics.median(times[1:]) * 1e3:.1f} "
+          f"{batch / statistics.median(times[1:]) * 1e3:.1f} "
           f"patches/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launches a step {launches}; "
           f"losses {[round(v, 4) for v in losses]}")
     print(f"profiled step: span {span:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1 - busy / span:.3f}; {copies} aten::copy_ calls")
@@ -355,6 +326,78 @@ def main(argv=None):
                 found.items(), key=lambda kv: -kv[1][0]):
             print(f"  {ms:10.2f} ms  x{count:<3d} {op} {shapes} -> "
                   f"{kernel[:80]}")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="python -m vnet_tpu_torch.tools."
+                                          "profile_step")
+    parser.add_argument("--batch", type=int, nargs="+", default=None,
+                        help="patches per step (96; 32 with --config2d); "
+                             "several run in turn")
+    parser.add_argument("--impl", default="pallas",
+                        choices=["pallas", "bits8", "xla"])
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--conv_impl", default="packed", choices=CONV_IMPLS,
+                        help="the network's convolutions (the trainer's "
+                             "default: packed)")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute the conv blocks (and attention "
+                             "heads) in backward (Networks.Remat)")
+    parser.add_argument("--patch", type=int, nargs="+", default=None,
+                        help="the step's patch (default 64^3; 256^2 with "
+                             "--config2d)")
+    parser.add_argument("--find", default=None, metavar="FRAGMENT",
+                        help="name the operators whose kernels hold it")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--attention", action="store_true",
+                      help="the attention-gated step instead")
+    mode.add_argument("--config2d", action="store_true",
+                      help="configs/config_2d.json's 2D step instead")
+    mode.add_argument("--group", action="store_true",
+                      help="the flagship step in a process group of one "
+                           "rank against none, in turns")
+    parser.add_argument("--rounds", type=int, default=3,
+                        help="--group: rounds of none, group, group, none")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA card")
+    if args.attention:
+        build, what = attention_step, "attention step"
+    elif args.config2d:
+        build, what = config2d_step, "config_2d.json step"
+    else:
+        build, what = flagship_step, "flagship step"
+    default = PATCH_2D if args.config2d else PATCH
+    shape = "x".join(map(str, args.patch or default))
+    if args.batch is None:
+        args.batch = [BATCH_2D if args.config2d else 96]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    if args.group:
+        print(f"card: {smi}")
+        readings, collectives = group_vs_none(
+            args.impl, args.batch[0], args.steps, args.rounds,
+            args.conv_impl)
+        for kind, ms in readings.items():
+            q = statistics.quantiles(ms, n=4)
+            print(f"flagship step, conv_impl {args.conv_impl}, impl "
+                  f"{args.impl}, batch {args.batch[0]}, {kind:5s}: median "
+                  f"{statistics.median(ms):.2f} ms, quartiles {q[0]:.2f} "
+                  f"{q[2]:.2f}, min {min(ms):.2f} max {max(ms):.2f} over "
+                  f"{len(ms)} steps: {[round(t, 2) for t in ms]}")
+        print(f"collectives called by the grouped steps: {collectives}")
+        return
+    for batch in args.batch:
+        try:
+            profile(build, what, shape, args, batch, smi)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"{what}, impl {args.impl}, remat {args.remat}, batch "
+                  f"{batch}, {shape}: does not fit in the card's memory "
+                  f"({str(e).splitlines()[0][:160]})")
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ The network is built as the JAX trainer builds it (``build_network``'s
 defaults): packed convolutions with adaptive per-level packing at
 ``PackedTargetLanes``, the double norm of ``VNetLegacy``, any name of the
 zoo; ``build_network(..., conv_impl="direct")`` builds the direct one.
-``Remat: true`` is accepted and ignored, with a warning (ROADMAP.md).
+``Remat: true`` recomputes the conv blocks (and the attention heads) in
+the backward pass (``models/layers.py::recomputed``).
 The host transforms' shared generator (``data/rand.py``) is seeded from
 ``Seed`` and the run's first step when training starts, so a run with one
 loader worker (``LoaderWorkers: 1`` or 0) draws the same crops every time;
@@ -507,8 +508,7 @@ class Trainer:
 
     def _write_network_sidecar(self, ckpt_dir: str) -> None:
         """``network_config.json`` beside the checkpoints: the architecture
-        travels with the weights, with the JAX trainer's keys and values
-        (``Remat``, a knob the port ignores, as the config gives it)."""
+        travels with the weights, with the JAX trainer's keys and values."""
         net = self.t.network
         sidecar = {
             "Networks": {
