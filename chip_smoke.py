@@ -273,6 +273,40 @@ non-zero before the result line:
    against its plain version in the ``xla`` flavour (forward, recompute
    and backward at config.json's shapes), no dW launch, the wall and the
    peak memory;
+26. (run after phase 25; (c) and the blend at (a)'s geometry run right
+   after phase 11, with the process's other traces) the evaluation and
+   diagnostic tools: (a) ``tools/benchmark_eval.py``'s engine (the packed
+   full-width V-Net, bf16, random weights from seed 0) on a resident
+   512^3 volume at stride 64 and batch 128 with the ``pallas`` and the
+   ``xla`` blend through one network instance: each of the four kernel
+   launches of a call held bitwise against the plain slice-adds on a
+   clone of the 2 GiB accumulator, labels equal and accumulators within
+   ``BENCH_RTOL``; the copy's seconds, and per blend the median of
+   ``BENCH_REPS`` reps (argmax and a scalar fetch inside), the first call
+   and the peak memory; before that, the kernel alone at that geometry
+   (one launch of 128 64^3 patches) against its plain version, timed
+   beside its byte bound, and at a ``BENCH_MARGIN``^3 accumulator with
+   patches at the far corners, both float paths, bitwise; (b)
+   ``experiments/eval2d.py``'s engines on a resident 16x512x512 stack,
+   stacked and one call a slice, every stacked blend launch held bitwise:
+   in float32 with TF32 off, probabilities within ``DP_PROB_ATOL`` and
+   labels equal wherever the top two differ by more than
+   ``DP_LABEL_GAP``; in the tool's bf16, probabilities within
+   ``EVAL2D_BF16_ATOL`` and labels equal wherever the top two differ by
+   more than twice the largest difference (the two modes put a patch at
+   other rows of other batches, and the card's bf16 convolutions round a
+   patch's logits by its row: the logits of the same patches at two rows
+   are printed); (c) ``tools/analyze_trace.py`` over a
+   ``profiler.TraceCapture`` trace of one warm 512^3 engine call: busy
+   time above 0, the blend kernel among the top ops with its four
+   launches, group totals at least the busy time; (d)
+   ``tools/benchmark_loader.py`` (a process each, ``thread`` and
+   ``process`` backends, the host's CPUs as workers) at 4 cases of
+   96x96x48 for 4 batches: every variant's patches/s; (e) on phase 21's
+   quickstart workdir, ``experiments/eval_only.py`` with both blends
+   (every kernel launch held bitwise), ``experiments/compare_preds.py``
+   on the two prediction sets (exit code 0) and
+   ``experiments/patch_diagnose.py`` on one case;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -411,6 +445,37 @@ SP_TIMEOUT = 420.0
 # volume, cuDNN free to pick other algorithms for the other shapes; allowed
 # max |diff| relative to the largest logit
 SP_FORWARD_RTOL = 1e-4
+# phase 26: the evaluation and diagnostic tools. (a) tools/benchmark_eval.py's
+# defaults (512^3, patch, stride 64, batch 128: 512 patches in 4 launches of
+# 128, a (512, 512, 512, 4) float32 accumulator of 2 GiB); the two blends
+# add the same numbers in the same order through one network instance, so
+# the accumulators must agree within BENCH_RTOL of the largest sum (they
+# are equal unless cuDNN computes the same batch twice differently)
+BENCH_SIZE, BENCH_PATCH, BENCH_STRIDE, BENCH_BATCH = 512, 64, 64, 128
+BENCH_REPS = 3
+BENCH_RTOL = 1e-5
+# the blend kernel's offsets at a larger accumulator than (a)'s, as a margin
+BENCH_MARGIN = 640
+# (b) experiments/eval2d.py's 512x512 stack, cut from 64 slices to 16; the
+# two modes put a patch at other rows of other batches, and the card's
+# bf16 convolutions round a patch's logits by its row: in float32 with
+# TF32 off the modes are held as phase 20's sharded evaluation is
+# (DP_PROB_ATOL, DP_LABEL_GAP); in bf16 labels may flip only where the top
+# two probabilities differ by less than twice the largest difference, which
+# stays within EVAL2D_BF16_ATOL (a patch blended into another slice or
+# place moves probabilities by tenths)
+STACK_2D = (16, 512, 512, 1)
+EVAL2D_BF16_ATOL = 0.05
+# (d) tools/benchmark_loader.py, cut to a few cases and batches (of 2: an
+# epoch drops its last partial batch, so 4 cases make no batch of 8)
+LOADER_CASES, LOADER_SIZE, LOADER_BATCH, LOADER_BATCHES = 4, (96, 96, 48), 2, 4
+LOADER_TIMEOUT = 300.0
+# idle seconds at each end of a traced window, a try each: the profiler
+# maps the card's kernel times onto the host clock, on the H100 machine now
+# and then a millisecond or more off (a kernel before its launch call), and
+# drops a kernel that then falls outside the window; one run lost 2 of 5
+# launches six traces in a row with no idle time, another 4 of 5 with 20 ms
+TRACE_PADS_S = (0.02, 0.1, 0.25, 0.5, 1.0, 2.0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -440,13 +505,11 @@ def time_ms(fn, reps: int = 25, warmup: bool = True) -> float:
 
 
 def phase_device_and_build():
+    from vnet_tpu_torch.device import card_line
     from vnet_tpu_torch.ops import build
 
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_line()
     has = {}
     for module in ("yaml", "tensorboardX"):
         try:
@@ -553,7 +616,8 @@ def dropout_sass(library) -> None:
                                     f"{key_adds / 18:g} times")
 
 
-def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width):
+def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width,
+                     tag="2"):
     """Blend kernel vs the plain slice-adds: bitwise equal, on the float
     path of ``width`` floats per element; times and the byte bound (each
     covered accumulator element read and written once, each contribution
@@ -594,10 +658,12 @@ def _kernel_vs_plain(acc_shape, patch, starts, gen, label, width):
                            if "blend_accumulate_kernel" in name)
     nbytes = (2 * covered * acc_shape[-1] * 4 + contrib.nbytes)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    say(f"[2] {label}: acc {tuple(acc_shape)} contrib "
-        f"{tuple(contrib.shape)} starts {starts.tolist()}; {covered} covered "
+    rows = (starts.tolist() if b <= 16 else
+            f"{b} rows, {starts[0].tolist()} to {starts[-1].tolist()}")
+    say(f"[{tag}] {label}: acc {tuple(acc_shape)} contrib "
+        f"{tuple(contrib.shape)} starts {rows}; {covered} covered "
         f"elements, up to {depth} patches over one")
-    say(f"[2] {label}: {'float4' if got_width == 4 else 'float'} path "
+    say(f"[{tag}] {label}: {'float4' if got_width == 4 else 'float'} path "
         f"(width {got_width}, expected {width}); bitwise_equal={equal} "
         f"max_abs_err={err:.3e}; kernel {ms:.4f} ms of device time "
         f"(profiler, median of {calls}, one launch a call in the trace, "
@@ -1779,30 +1845,43 @@ def _device_spans(fn, kernel: str, per_call: int, calls: int, label: str):
     """``([(name, ms)], tries)``: the device events of ``calls`` calls of
     ``fn`` from a ``torch.profiler`` trace, which must hold ``per_call``
     events of ``kernel`` (a name fragment) a call, as the launch count says.
-    A trace can miss device events (a cold one often; on the H100 machine,
-    later ones now and then hold none at all), so each try starts with an
-    untimed trace of one call, and a trace whose count differs is taken
-    again, six tries in all: a kernel that runs another number of times
-    fails every one."""
+    A trace can miss device events (a cold one often; one whose kernels
+    the profiler places outside its window, which the idle time of
+    ``TRACE_PADS_S`` at each end, longer at each try, guards against), so
+    each try starts with an untimed trace of one call, and a trace whose
+    count differs is taken again, six tries in all: a kernel that runs
+    another number of times fails every one. The failure lists each try's
+    count and its kernels' starts in ms from the first launch call's."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for tries in range(1, 7):
+    missed = []
+    for tries, pad in enumerate(TRACE_PADS_S, 1):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts):
             fn()
             torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(pad)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
+        events = prof.events()
         spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
-                 for e in prof.events()
+                 for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         found = sum(kernel in name for name, _ in spans)
         if found == per_call * calls:
             return spans, tries
-    check(False, f"{label}: the trace shows {found} {kernel} events in "
-                 f"{calls} calls, the count {per_call} a call")
+        first = min((e.time_range.start for e in events
+                     if "LaunchKernel" in e.name), default=0)
+        missed.append((found, [round((e.time_range.start - first) / 1e3, 2)
+                               for e in events if kernel in e.name
+                               and e.device_type
+                               == torch.autograd.DeviceType.CUDA]))
+    check(False, f"{label}: the traces show {missed} (count, starts) "
+                 f"{kernel} events in {calls} calls, the count {per_call} "
+                 f"a call")
 
 
 def _rows_case(big_r, c, starts, window, gen, label):
@@ -3328,6 +3407,338 @@ def phase_remat(tmp):
 
 
 
+# phase 26: the evaluation and diagnostic tools
+
+def _blend_margin():
+    """The blend kernel at a BENCH_MARGIN^3 accumulator (4 and 3 channels,
+    both float paths): patches at the far corners, where the offsets are
+    largest, bitwise equal to the plain slice-adds."""
+    from vnet_tpu_torch.ops.blend import (blend_accumulate_patches,
+                                          blend_accumulate_plain)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    edge, p = BENCH_MARGIN, BENCH_PATCH
+    far = edge - p
+    starts = torch.tensor([[x, y, z] for x in (0, far) for y in (0, far)
+                           for z in (0, far)] + [[far - 3, far, far - 5]],
+                          dtype=torch.int32)
+    for c, width in ((4, 4), (3, 1)):
+        acc = torch.zeros((edge,) * 3 + (c,), device=dev)
+        contrib = torch.rand((len(starts),) + (p,) * 3 + (c,),
+                             generator=gen, device=dev)
+        got = blend_accumulate_patches(acc.clone(), contrib, starts)
+        taken = blend_accumulate_patches.last_width
+        ref = blend_accumulate_plain(acc, contrib, starts)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, ref)
+        corner = got[-1, -1, -1].sum().item()
+        say(f"[26] blend at a {edge}^3 accumulator, {c} channels "
+            f"({got.numel() * 4 / 2 ** 30:.2f} GiB, {got.numel()} floats): "
+            f"{len(starts)} patches at the far corners, width {taken}, "
+            f"bitwise_equal={equal}, last element's sum {corner:.4f}")
+        check(equal and taken == width and corner > 0,
+              f"the blend at {edge}^3 x {c}: equal {equal}, width {taken}")
+        del acc, contrib, got, ref
+
+
+def phase_tools_trace():
+    """Phase 26 (c) and the blend at (a)'s geometry, with the process's
+    other traces before its first CLI run: the blend kernel at
+    ``tools/benchmark_eval.py``'s 512^3 geometry (one launch of 128 64^3
+    patches into the 2 GiB accumulator) against its plain version and
+    timed, the BENCH_MARGIN^3 margin, then ``tools/analyze_trace.py`` over
+    a ``profiler.TraceCapture`` trace of one warm 512^3 engine call; the
+    blend kernel's readings at 512^3."""
+    import io
+    import pathlib
+
+    from vnet_tpu_torch.infer.sliding_window import build_patch_grid
+    from vnet_tpu_torch.profiler import TraceCapture
+    from vnet_tpu_torch.tools import analyze_trace
+    from vnet_tpu_torch.tools import benchmark_eval as be
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (BENCH_SIZE,) * 3
+    grid = build_patch_grid(shape, (BENCH_PATCH,) * 3, (BENCH_STRIDE,) * 3)
+    check(len(grid) == 4 * BENCH_BATCH, f"{len(grid)} patches at 512^3")
+    err, ms, plain_ms, bound_ms, call_ms = _kernel_vs_plain(
+        shape + (4,), (BENCH_PATCH,) * 3, grid[:BENCH_BATCH], gen,
+        "benchmark_eval's 512^3 geometry", 4, tag="26")
+    torch.cuda.empty_cache()
+    _blend_margin()
+    torch.cuda.empty_cache()
+
+    engine, _ = be.build_engine(BENCH_PATCH, BENCH_STRIDE, BENCH_BATCH, 3,
+                                blend_impl="pallas", device="cuda")
+    vol, _ = be.resident_volume(BENCH_SIZE, "cuda")
+    engine(vol)[1].sum().item()  # the first call: cuDNN's warm-up
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_trace_")
+    try:
+        with TraceCapture(tmp, "cuda") as trace:
+            time.sleep(TRACE_PADS_S[3])
+            engine(vol)[1].sum().item()
+            time.sleep(TRACE_PADS_S[3])
+        summary = analyze_trace.summarize(
+            analyze_trace.read_events(pathlib.Path(trace.path)))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = analyze_trace.main([tmp, "--group", "--top", "8"])
+        size = os.path.getsize(trace.path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            say(f"[26] analyze_trace: {line}")
+    busy, ops = summary["busy_ms"], summary["ops"]
+    ranked = sorted(ops, key=lambda k: -ops[k][0])
+    blend = [k for k in ranked if "blend_accumulate_kernel" in k]
+    grouped = sum(summary["groups"].values())
+    trace_ms = sum(ops[k][0] for k in blend) / max(1, sum(ops[k][1]
+                                                          for k in blend))
+    say(f"[26] trace of one 512^3 engine call ({size / 2 ** 20:.1f} MiB): "
+        f"busy {busy:.3f} ms over {summary['events']} device events, groups "
+        f"sum {grouped:.3f} ms; blend launches in it "
+        f"{sum(ops[k][1] for k in blend)}, {trace_ms:.4f} ms a launch, rank "
+        f"{[ranked.index(k) + 1 for k in blend]} of {len(ranked)} kernels")
+    check(code == 0 and busy > 0, f"analyze_trace: code {code}, busy {busy}")
+    check(blend and ranked.index(blend[0]) < 25,
+          "the blend kernel is not among the trace's top 25 ops")
+    check(sum(ops[k][1] for k in blend) == 4, "not 4 blend launches traced")
+    check(grouped >= busy * (1 - 1e-9), f"groups {grouped} < busy {busy}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, call_ms=call_ms,
+                max_abs_err=err, engine_trace_ms=trace_ms,
+                share_of_bound=bound_ms / ms,
+                shape="128 x (64, 64, 64, 4) into (512, 512, 512, 4)")
+
+
+def _eval2d_modes(stack, dtype):
+    """Phase 26 (b) at one dtype: ``experiments/eval2d.py``'s engines,
+    the stacked call held (every blend launch bitwise), then one call a
+    slice; ``(blend launches, readings)``: the two modes' largest
+    probability difference, their label agreement, flips where the top
+    two probabilities differ by more than ``DP_LABEL_GAP`` or by more than
+    twice that difference, and the logits of the same patches at other
+    rows of other batches, as the two modes place them."""
+    from vnet_tpu_torch.experiments import eval2d
+    from vnet_tpu_torch.infer.sliding_window import build_patch_grid
+    from vnet_tpu_torch.models import eval_apply
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    if dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        stacked, per_slice, net = eval2d.build_engines(256, 128, 16, 3,
+                                                       "cuda", dtype=dtype)
+        reset_counts()
+        t0 = time.perf_counter()
+        with _holding() as (blends, drops):
+            acc_s, w_s = stacked(stack)
+            torch.cuda.synchronize()
+        stacked_s = time.perf_counter() - t0
+        counts = read_counts()
+        _check_held("26", blends, drops, counts)
+        grid = build_patch_grid(STACK_2D[1:3], (256, 256), (128, 128))
+        rows = STACK_2D[0] * len(grid)
+        check(counts["blend_accumulate"] == -(-rows // 16),
+              f"stacked blend launches {counts}, {rows} rows")
+        t0 = time.perf_counter()
+        per = [per_slice(stack[z]) for z in range(STACK_2D[0])]
+        acc_p = torch.stack([a for a, _ in per])
+        w_p = torch.stack([w for _, w in per])
+        torch.cuda.synchronize()
+        per_s = time.perf_counter() - t0
+        n_per = read_counts()["blend_accumulate"] - counts["blend_accumulate"]
+        check(n_per == STACK_2D[0], f"per-slice launches {n_per}")
+        check(torch.equal(w_s, w_p), "the two modes' blend weights differ")
+        prob_s, prob_p = acc_s / w_s[..., None], acc_p / w_p[..., None]
+        diff = (prob_s - prob_p).abs().max().item()
+        top2 = torch.topk(prob_p, 2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        flips = torch.argmax(acc_s, -1) != torch.argmax(acc_p, -1)
+        # the stacked first batch is slice 0's 9 patches and slice 1's
+        # first 7; per slice, slice 1's batch is its 9 and the last one
+        # repeated: the same 7 patches at rows 9-15 and at rows 0-6
+        k = len(grid)
+
+        def patches(z):
+            return [stack[z, x:x + 256, y:y + 256] for x, y in grid.tolist()]
+
+        first = eval_apply(net, torch.stack(patches(0) + patches(1)[:16 - k]))
+        own = eval_apply(net, torch.stack(patches(1) + patches(1)[-1:]
+                                          * (16 - k)))
+        out_s, out_p = first.float()[k:], own.float()[:16 - k]
+        readings = dict(
+            dtype=str(dtype), prob_diff=diff,
+            agreement=1.0 - flips.float().mean().item(),
+            flips=int(flips.sum()),
+            decided_flips=int((flips & (gap > DP_LABEL_GAP)).sum()),
+            flips_beyond=int((flips & (gap > 2 * diff)).sum()),
+            logit_diff=(out_s - out_p).abs().max().item(),
+            logit_max=out_p.abs().max().item(),
+            stacked_s=stacked_s, per_slice_s=per_s)
+        say(f"[26] (b) eval2d {STACK_2D[:3]} {dtype}: stacked {stacked_s:.2f}"
+            f" s (held, first call) with {counts['blend_accumulate']} "
+            f"launches, per slice {per_s:.2f} s with {n_per}; max prob diff "
+            f"{diff:.3e}, labels agree on {readings['agreement']:.6f} "
+            f"({readings['flips']} flips, {readings['decided_flips']} where "
+            f"the top two differ by more than {DP_LABEL_GAP:g}); slice 1's "
+            f"first 7 patches at rows 9-15 of a batch and at rows 0-6 of "
+            f"another: max |logit diff| "
+            f"{readings['logit_diff']:.3e} of {readings['logit_max']:.3e}")
+        return counts["blend_accumulate"] + n_per, readings
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def phase_tools(qs_workdir):
+    """Phase 26 (a), (b), (d), (e): the tools' main paths on the card; the
+    blend launches of their runs."""
+    import io
+
+    from vnet_tpu_torch.experiments import (compare_preds, eval_only,
+                                            patch_diagnose)
+    from vnet_tpu_torch.infer.sliding_window import SlidingWindowInference
+    from vnet_tpu_torch.tools import benchmark_eval as be
+
+    launches = 0
+    # (a) benchmark_eval's engine at 512^3, the kernel and the plain blend
+    engine, _ = be.build_engine(BENCH_PATCH, BENCH_STRIDE, BENCH_BATCH, 3,
+                                blend_impl="pallas", device="cuda")
+    plain = SlidingWindowInference(
+        engine.apply_fn, engine.patch_shape, engine.stride, BENCH_BATCH, 3,
+        blend_impl="xla", device="cuda")
+    vol, copy_s = be.resident_volume(BENCH_SIZE, "cuda")
+    check(engine.device_volume(vol).data_ptr() == vol.data_ptr(),
+          "the engine copies a resident volume")
+    reset_counts()
+    t0 = time.perf_counter()
+    with _holding() as (blends, drops):
+        acc_k, w_k = engine(vol)
+        torch.cuda.synchronize()
+    held_s = time.perf_counter() - t0
+    counts = read_counts()
+    _check_held("26", blends, drops, counts)
+    check(counts["blend_accumulate"] == 4 and not drops,
+          f"launches {counts} at 512^3, expected 4 blends")
+    launches += counts["blend_accumulate"]
+    acc_x, w_x = plain(vol)
+    scale = acc_x.abs().max().item()
+    diff = (acc_k - acc_x).abs().max().item()
+    same = torch.equal(torch.argmax(acc_k, -1), torch.argmax(acc_x, -1))
+    say(f"[26] (a) 512^3 stride {BENCH_STRIDE} batch {BENCH_BATCH}: copy "
+        f"{copy_s:.4f} s; first call (held) {held_s:.2f} s; pallas vs xla: "
+        f"labels equal {same}, max |acc diff| {diff:.3e} of {scale:.3e}, "
+        f"weights equal {torch.equal(w_k, w_x)}")
+    check(same and diff <= BENCH_RTOL * scale and torch.equal(w_k, w_x),
+          "the 512^3 engine's blends disagree")
+    del acc_k, w_k, acc_x, w_x
+    readings = {}
+    for name, eng in (("pallas", engine), ("xla", plain)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()["blend_accumulate"]
+        first, times = be.timed_reps(eng, vol, BENCH_REPS)
+        n = read_counts()["blend_accumulate"] - before
+        launches += n
+        readings[name] = dict(
+            median_s=statistics.median(times), times_s=times, first_s=first,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            blend_launches=n)
+        say(f"[26] (a) {name}: median {readings[name]['median_s']:.4f} s of "
+            f"{times}, first {first:.4f} s, peak "
+            f"{readings[name]['peak_gib']:.2f} GiB, blend launches {n}")
+    check(readings["pallas"]["blend_launches"] == 4 * (1 + BENCH_REPS)
+          and readings["xla"]["blend_launches"] == 0,
+          f"blend launches {readings}")
+    del vol, engine, plain
+    torch.cuda.empty_cache()
+
+    # (b) eval2d: stacked against per-slice, in the tool's bf16 and in
+    # float32 with TF32 off
+    stack = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=STACK_2D).astype(np.float32)).to("cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        n, readings_2d = _eval2d_modes(stack, dtype)
+        launches += n
+        if dtype == torch.float32:
+            check(readings_2d["prob_diff"] <= DP_PROB_ATOL
+                  and readings_2d["decided_flips"] == 0,
+                  f"eval2d float32: stacked and per-slice differ "
+                  f"{readings_2d}")
+        else:
+            check(readings_2d["prob_diff"] <= EVAL2D_BF16_ATOL
+                  and readings_2d["flips_beyond"] == 0,
+                  f"eval2d bf16: stacked and per-slice differ {readings_2d}")
+    del stack
+    torch.cuda.empty_cache()
+
+    # (d) benchmark_loader, in processes of their own (the process
+    # backend forks a process without the card's context)
+    for backend in ("thread", "process"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "vnet_tpu_torch.tools.benchmark_loader",
+             "--cases", str(LOADER_CASES), "--size", *map(str, LOADER_SIZE),
+             "--batch", str(LOADER_BATCH), "--batches", str(LOADER_BATCHES),
+             "--backend", backend],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=LOADER_TIMEOUT)
+        check(proc.returncode == 0, f"benchmark_loader --backend {backend}: "
+                                    f"{proc.stderr[-2000:]}")
+        rows_out = [json.loads(x) for x in proc.stdout.splitlines()
+                    if x.startswith("{")]
+        for r in rows_out:
+            say(f"[26] (d) loader {backend} {r['variant']}: "
+                f"{r['patches_per_s']:.2f} patches/s, {r['workers']} "
+                f"workers, {r['host_cpus']} host CPUs")
+        check([r["variant"] for r in rows_out] == ["full", "lean", "cached",
+                                                   "confidence"]
+              and all(r["patches_per_s"] > 0 for r in rows_out),
+              f"loader {backend}: {rows_out}")
+        say(f"[26] (d) loader {backend}: {time.perf_counter() - t0:.1f} s")
+
+    # (e) the diagnostics on phase 21's quickstart workdir
+    evaluate = os.path.join(qs_workdir, "evaluate")
+    for impl in ("pallas", "xla"):
+        out = io.StringIO()
+        reset_counts()
+        with _holding() as (blends, drops), contextlib.redirect_stdout(out):
+            code = eval_only.main(["--workdir", qs_workdir, "--blend-impl",
+                                   impl, "--suffix", impl, "--device",
+                                   "cuda"])
+            torch.cuda.synchronize()
+        counts = read_counts()
+        for line in out.getvalue().splitlines():
+            say(f"[26] (e) eval_only: {line}")
+        _check_held("26", blends, drops, counts)
+        check(code == 0 and (counts["blend_accumulate"] > 0)
+              == (impl == "pallas"), f"eval_only {impl}: {code}, {counts}")
+        launches += counts["blend_accumulate"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = compare_preds.main(["compare_preds", evaluate,
+                                   "pred_xla.nii.gz", "pred_pallas.nii.gz"])
+    for line in out.getvalue().splitlines():
+        say(f"[26] (e) compare_preds: {line}")
+    check(code == 0, "the two blends' predictions disagree")
+    case = sorted(os.listdir(evaluate))[0]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = patch_diagnose.main(["--workdir", qs_workdir, "--case",
+                                    f"evaluate/{case}", "--device", "cuda"])
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        say(f"[26] (e) patch_diagnose: {line}")
+    check(code == 0 and lines[-1].startswith("blended (uniform) dice")
+          and sum(x.startswith("patch ") for x in lines) > 0,
+          "patch_diagnose")
+    return launches, readings
+
+
 def run():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3341,6 +3752,7 @@ def run():
     # device events in six tries
     blend, blend_2d = phase_kernel_vs_plain(card)
     rows, n_rows = phase_rows()
+    blend_512 = phase_tools_trace()
     phase_forward_card_vs_cpu()
     phase_packed_vs_direct()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_")
@@ -3385,26 +3797,28 @@ def run():
         sp_drops = phase_spatial(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    tmp = tempfile.mkdtemp(prefix="vnet_smoke_quickstart_")
+    # phase 21's workdir stays for phase 26 (e)
+    qs_tmp = tempfile.mkdtemp(prefix="vnet_smoke_quickstart_")
     try:
-        qs_drops, qs_blends = phase_quickstart(tmp)
+        qs_drops, qs_blends = phase_quickstart(qs_tmp)
+        tmp = tempfile.mkdtemp(prefix="vnet_smoke_flags_")
+        try:
+            fl_drops, fl_blends = phase_flags(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        tmp = tempfile.mkdtemp(prefix="vnet_smoke_export_")
+        try:
+            phase_export(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        tmp = tempfile.mkdtemp(prefix="vnet_smoke_remat_")
+        try:
+            remat_drops = phase_remat(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        tool_blends, bench_eval = phase_tools(os.path.join(qs_tmp, "q3"))
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    tmp = tempfile.mkdtemp(prefix="vnet_smoke_flags_")
-    try:
-        fl_drops, fl_blends = phase_flags(tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    tmp = tempfile.mkdtemp(prefix="vnet_smoke_export_")
-    try:
-        phase_export(tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    tmp = tempfile.mkdtemp(prefix="vnet_smoke_remat_")
-    try:
-        remat_drops = phase_remat(tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(qs_tmp, ignore_errors=True)
     drop_rows, drop_sums = phase_dropout_times()
 
     def timed(shape, impl):
@@ -3423,13 +3837,17 @@ def run():
         dict(name="blend_accumulate_patches", route="cuda",
              source="vnet_tpu_torch/csrc/blend_accumulate.cu",
              replaces="vnet_tpu/ops/pallas/fused.py:220",
-             launches=launches + blends_2d + qs_blends + fl_blends,
+             launches=(launches + blends_2d + qs_blends + fl_blends
+                       + tool_blends),
              launches_in="phase 4 (3D evaluation), phase 15 (2D "
                          "evaluation, slice-stacked), phase 21 (the "
-                         "quickstart's 3D and 2D evaluations) and phase 22 "
-                         "(flags.evaluate)",
+                         "quickstart's 3D and 2D evaluations), phase 22 "
+                         "(flags.evaluate) and phase 26 (benchmark_eval's "
+                         "512^3 engine, eval2d stacked and per slice, "
+                         "eval_only)",
              at_2d=dict(shape="10 x (1, 256, 256, 3) into (64, 384, 384, 3)",
-                        **blend_2d), **blend),
+                        **blend_2d),
+             at_512=dict(benchmark_eval=bench_eval, **blend_512), **blend),
         dict(name="pallas_dropout", route="cuda",
              source="vnet_tpu_torch/csrc/dropout.cu",
              replaces="vnet_tpu/ops/pallas/dropout.py:99",

@@ -163,3 +163,42 @@ def test_slice_stacked_engine_kernel_equals_plain_on_card(cuda_device):
             for impl in ("pallas", "xla")]
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,patch,stride,stacked", [
+    ((40, 36, 24, 1), (16, 16, 8), (12, 10, 8), False),
+    ((5, 40, 36, 1), (16, 16), (12, 10), True),
+    ((40, 36, 1), (16, 16), (12, 10), False)])
+def test_engine_uses_a_resident_tensor_in_place_on_card(shape, patch, stride,
+                                                        stacked, cuda_device):
+    """A float32 volume already on the card is the engine's volume (the
+    same storage, no host round trip, no second copy); a host volume is
+    copied there once; both give the numpy path's sums bit for bit, with
+    the kernel's blend (3D, slice-stacked and one slice)."""
+    from vnet_tpu_torch.infer.sliding_window import SlidingWindowInference
+
+    w = torch.randn((1, 3), generator=torch.Generator().manual_seed(6)).to(
+        cuda_device)
+
+    def model(p):
+        return torch.einsum("...c,ck->...k", p - p.mean(), w)
+
+    volume = np.random.default_rng(7).normal(size=shape).astype(np.float32)
+    engine = SlidingWindowInference(model, patch, stride, 4, 3,
+                                    gaussian_blend=True, blend_impl="pallas",
+                                    slice_stacked=stacked,
+                                    device=cuda_device)
+    resident = torch.from_numpy(volume).to(cuda_device)
+    assert engine.device_volume(resident).data_ptr() == resident.data_ptr()
+    host = torch.from_numpy(volume)
+    copied = engine.device_volume(host)
+    assert copied.device.type == "cuda" and copied.data_ptr() != \
+        host.data_ptr()
+    launches = blend_accumulate_patches.launches
+    got = engine(resident)
+    torch.cuda.synchronize()
+    assert blend_accumulate_patches.launches > launches
+    ref = engine(volume)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

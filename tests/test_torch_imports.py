@@ -78,7 +78,11 @@ def test_port_modules_cover_the_package():
                    "experiments.attention_step",
                    "utils.synthdata", "utils.batch_evaluate", "utils.bbox",
                    "utils.prepare_data", "utils.prepare_data.prepare",
-                   "utils.prepare_data.__main__", "export", "native"):
+                   "utils.prepare_data.__main__", "export", "native",
+                   "tools.benchmark_eval", "tools.benchmark_loader",
+                   "tools.analyze_trace", "experiments.eval2d",
+                   "experiments.eval_only", "experiments.compare_preds",
+                   "experiments.patch_diagnose"):
         assert f"vnet_tpu_torch.{module}" in PORT_MODULES, module
     assert {os.path.basename(p) for p in CUDA_TESTS} == {
         f"test_torch_cuda_{k}.py" for k in ("blend", "fused", "dropout",

@@ -8,7 +8,8 @@ sampling distributions. A sample is ``{'image': [MedicalImage, ...],
 
 These run on the host (file-touching, geometry-changing work). The
 port's copy of ``vnet_tpu/data/transforms3d.py``; the on-device
-augmentation of the JAX package is not ported yet.
+augmentation (flip and noise on the card, ``DeviceAugment``) is
+``data/device_aug.py``.
 """
 
 from __future__ import annotations

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -12,3 +14,15 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
                            "device; pass device='cpu' to run on the CPU")
     return dev
+
+
+def card_line():
+    """``nvidia-smi``'s ``name, power.limit`` of the cards, one line a
+    card, as every reading on the card is reported beside it; None where
+    torch sees no CUDA device."""
+    if not torch.cuda.is_available():
+        return None
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()

@@ -155,27 +155,39 @@ class SlidingWindowInference:
             probs = torch.cat([pred[..., None], probs], dim=-1)
         return probs
 
-    def __call__(self, volume: np.ndarray):
+    def device_volume(self, volume) -> torch.Tensor:
+        """``volume`` as a float32 tensor on the engine's device: a tensor
+        already there (and float32) is returned as it is, anything else
+        (a numpy array, a host tensor) is copied there once."""
+        if isinstance(volume, torch.Tensor):
+            return volume.to(self.device, torch.float32)
+        return torch.from_numpy(
+            np.ascontiguousarray(volume, np.float32)).to(self.device)
+
+    def __call__(self, volume):
         """Run the full grid over ``volume``: ``(X, Y, Z, C)`` in 3D, ``(Z,
         H, W, C)`` slice-stacked, ``(H, W, C)`` for one slice, at least
-        patch-sized per patch axis. Returns ``(softmax_sum, weight)`` as
+        patch-sized per patch axis; a numpy array or a tensor, which is
+        used in place when it already lies on the engine's device as
+        float32 (``device_volume``). Returns ``(softmax_sum, weight)`` as
         tensors on the device, over the volume's spatial axes:
         ``argmax(softmax_sum)`` is the label and ``softmax_sum / weight``
         the probability maps."""
+        vol = self.device_volume(volume)
         one_slice = self.rank == 2 and not self.slice_stacked
         if one_slice:
-            volume = np.asarray(volume)[None]
+            vol = vol[None]
         stacked = self.rank == 2
-        spatial = tuple(volume.shape[1:-1] if stacked else volume.shape[:-1])
+        spatial = tuple(vol.shape[1:-1] if stacked else vol.shape[:-1])
         for i in range(self.rank):
             if spatial[i] < self.patch_shape[i]:
-                raise ValueError(f"volume {tuple(volume.shape)} smaller than "
+                raise ValueError(f"volume {tuple(vol.shape)} smaller than "
                                  f"patch {self.patch_shape}; pad first")
         starts = build_patch_grid(spatial, self.patch_shape, self.stride)
         block = self.patch_shape
         if stacked:
             # every real z crossed with the (H, W) grid, in JAX's order
-            m, nz = starts.shape[0], volume.shape[0]
+            m, nz = starts.shape[0], vol.shape[0]
             zs = np.repeat(np.arange(nz, dtype=np.int32), m)
             starts = np.concatenate([zs[:, None], np.tile(starts, (nz, 1))],
                                     axis=-1)
@@ -195,11 +207,9 @@ class SlidingWindowInference:
             flags = flags[block0:block0 + per]
 
         dev = self.device
-        vol = torch.from_numpy(
-            np.ascontiguousarray(volume, np.float32)).to(dev)
         window = torch.from_numpy(self.blend_window).to(dev)
         acc_channels = self.num_classes + (1 if self.hard_accumulate else 0)
-        acc = torch.zeros(tuple(volume.shape[:-1]) + (1 + acc_channels,),
+        acc = torch.zeros(tuple(vol.shape[:-1]) + (1 + acc_channels,),
                           dtype=torch.float32, device=dev)
         blend = (blend_accumulate_patches if self.use_kernel
                  else blend_accumulate_plain)

@@ -27,7 +27,8 @@ result's channels-last storage. Convolution weights are the port's ``(O, I,
 spatially flipped (``convert.py``), so :func:`s2d_up_conv` does not flip
 them again. The matrix products are ``torch.matmul``, as JAX computes them
 with ``jnp.einsum`` outside any kernel. Spatial sharding (JAX's ``halo=``)
-is not ported.
+is :func:`packed_conv`'s ``halo``: the rank's slab exchanges its packed
+pads with its neighbours (``parallel/spatial.py``).
 """
 
 from __future__ import annotations

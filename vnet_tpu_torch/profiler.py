@@ -171,6 +171,49 @@ class StepTimer:
         return items_per_step / self.mean if self.times else float("nan")
 
 
+# kernel-name fragments -> group, first match wins: cuDNN's convolution
+# kernels name their pass (fprop, dgrad, wgrad) or "conv"; the other GEMM
+# kernels are the matrix products (the packed network's down and up
+# convolutions, its 1^r output conv, and the packed kernels' dx)
+GROUPS = (
+    ("sendrecv", "halo exchange"), ("nccl", "collectives"),
+    ("dw_mma_kernel", "dW kernel"), ("dw_partial_kernel", "dW kernel"),
+    ("dw_reduce_kernel", "dW kernel"),
+    ("dropout_kernel", "dropout kernel"),
+    ("blend_accumulate_kernel", "blend kernel"),
+    ("multi_tensor", "optimizer"), ("adam", "optimizer"),
+    ("fprop", "cuDNN convolution"), ("dgrad", "cuDNN convolution"),
+    ("wgrad", "cuDNN convolution"), ("conv", "cuDNN convolution"),
+    ("implicit", "cuDNN convolution"),
+    ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
+    ("cutlass", "matmul"), ("sm90", "matmul"),
+    ("reduce", "reductions"), ("Memcpy", "copies"), ("Memset", "copies"),
+)
+
+
+def group_of(name: str) -> str:
+    """The kernel group of a device event's name (``GROUPS``)."""
+    low = name.lower()
+    for fragment, group in GROUPS:
+        if fragment.lower() in low:
+            return group
+    return "elementwise and other"
+
+
+def busy_union(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals: time that
+    overlapping streams share counts once."""
+    busy, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
 def device_busy(prof) -> Tuple[float, float]:
     """``(span_ms, busy_ms)`` of a ``torch.profiler`` run: the span from its
     first host event to its last device event, and the union of its device
@@ -184,14 +227,6 @@ def device_busy(prof) -> Tuple[float, float]:
             host_start = min(host_start, start)
     if not device:
         return float("nan"), 0.0
-    device.sort()
-    busy, (cur_s, cur_e) = 0.0, device[0]
-    for s, e in device[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = max(e for _, e in device) - min(host_start, device[0][0])
-    return span / 1e3, busy / 1e3
+    span = (max(e for _, e in device)
+            - min(host_start, min(s for s, _ in device)))
+    return span / 1e3, busy_union(device) / 1e3

@@ -39,13 +39,13 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import tempfile
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..device import card_line
 from ..models.layers import Dropout
 from ..ops.dropout import dropout_apply
 from ..ops.dw_conv import dw_conv
@@ -328,10 +328,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("dp_bench needs a CUDA card")
     ranks = args.ranks or torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_line()
     print(f"cards: {smi}", flush=True)
     ref = train_check()
     torch.cuda.empty_cache()

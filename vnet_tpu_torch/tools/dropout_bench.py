@@ -65,7 +65,6 @@ import math
 import os
 import re
 import statistics
-import subprocess
 import time
 from collections import Counter
 from pathlib import Path
@@ -73,6 +72,7 @@ from pathlib import Path
 import torch
 
 from ..config import load_config
+from ..device import card_line
 from ..models import build_network
 from ..models.layers import Dropout
 
@@ -458,10 +458,7 @@ def main(argv=None):
     from ..ops import build
     from ..ops.dropout import bind
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_line()
     print(f"card: {smi}", flush=True)
     for kernel, regs in kernel_registers(build.load("dropout").log):
         print(f"dropout.cu ptxas: {kernel} {regs} registers", flush=True)

@@ -32,11 +32,11 @@ import json
 import math
 import os
 import statistics
-import subprocess
 from collections import Counter
 
 import torch
 
+from ..device import card_line
 from ..ops.dw_conv import (BRICK_POSITIONS, MMA_TARGET_BLOCKS, dw_conv_plain,
                            launch, plan)
 
@@ -148,10 +148,7 @@ def main(argv=None):
         return shapes
     if not torch.cuda.is_available():
         raise SystemExit("dw_bench needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_line()
     print(f"card: {smi}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     cl = torch.channels_last_3d

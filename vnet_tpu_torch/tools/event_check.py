@@ -29,6 +29,7 @@ import time
 
 import torch
 
+from ..device import card_line
 from . import dropout_bench as db
 
 SHAPES = [(32, 64, 128, 128), (8, 128, 32, 32, 32), (96, 128, 16, 16, 32)]
@@ -78,10 +79,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("event_check needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_line()
     print(f"card: {smi}", flush=True)
     rows = measure("idle", args.tries)
     cores = os.cpu_count() or 1

@@ -48,7 +48,6 @@ from __future__ import annotations
 import argparse
 import gc
 import statistics
-import subprocess
 import time
 from collections import defaultdict
 
@@ -56,11 +55,12 @@ import numpy as np
 import torch
 
 from ..config import LossConfig, OptimizerConfig
+from ..device import card_line
 from ..models import build_network
 from ..ops.dropout import dropout_apply
 from ..ops.dw_conv import dw_conv
 from ..parallel.mesh import batch_rows
-from ..profiler import device_busy
+from ..profiler import device_busy, group_of
 from ..train import TrainState, make_train_step
 from ..train.optim import build_optimizer
 
@@ -69,23 +69,6 @@ NUM_CLASSES = 3
 PATCH_2D = (256, 256)  # configs/config_2d.json
 BATCH_2D = 32
 
-# kernel-name fragments -> group, first match wins: cuDNN's convolution
-# kernels name their pass (fprop, dgrad, wgrad) or "conv"; the other GEMM
-# kernels are the matrix products (the packed network's down and up
-# convolutions, its 1^r output conv, and the packed kernels' dx)
-GROUPS = (
-    ("sendrecv", "halo exchange"), ("nccl", "collectives"),
-    ("dw_mma_kernel", "dW kernel"), ("dw_partial_kernel", "dW kernel"),
-    ("dw_reduce_kernel", "dW kernel"),
-    ("dropout_kernel", "dropout kernel"),
-    ("multi_tensor", "optimizer"), ("adam", "optimizer"),
-    ("fprop", "cuDNN convolution"), ("dgrad", "cuDNN convolution"),
-    ("wgrad", "cuDNN convolution"), ("conv", "cuDNN convolution"),
-    ("implicit", "cuDNN convolution"),
-    ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
-    ("cutlass", "matmul"), ("sm90", "matmul"),
-    ("reduce", "reductions"), ("Memcpy", "copies"), ("Memset", "copies"),
-)
 CONV_IMPLS = ("packed", "direct")
 
 
@@ -245,14 +228,6 @@ def group_vs_none(impl: str, batch: int, steps: int, rounds: int,
     return readings, dict(counts)
 
 
-def group_of(name: str) -> str:
-    low = name.lower()
-    for fragment, group in GROUPS:
-        if fragment.lower() in low:
-            return group
-    return "elementwise and other"
-
-
 def breakdown(prof):
     """``(span_ms, busy_ms, {group: ms}, {kernel name: (ms, count)})``."""
     span, busy = device_busy(prof)
@@ -371,10 +346,7 @@ def main(argv=None):
     shape = "x".join(map(str, args.patch or default))
     if args.batch is None:
         args.batch = [BATCH_2D if args.config2d else 96]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_line()
     if args.group:
         print(f"card: {smi}")
         readings, collectives = group_vs_none(

@@ -41,14 +41,15 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import tempfile
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..device import card_line
 from ..parallel import halo, launch, make_mesh
+from ..profiler import busy_union
 from . import dp_bench
 from .profile_step import breakdown, flagship_step, timed_steps
 
@@ -107,20 +108,11 @@ def _worst_gradient(ref, got) -> str:
 def _exchange_spans(prof):
     """``(device ms, wall ms)`` of the halo exchange's kernels in a trace:
     their summed durations and the union of their spans."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "sendrecv" in e.name.lower())
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "sendrecv" in e.name.lower()]
     total = sum(b - a for a, b in spans) / 1e3
-    wall, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            wall += b - a
-            end = b
-        elif b > end:
-            wall += b - end
-            end = b
-    return total, wall / 1e3
+    return total, busy_union(spans) / 1e3
 
 
 def step_timing(mesh=None, device="cuda", batch=8, patch=PATCH,
@@ -324,10 +316,7 @@ def main(argv=None):
         raise SystemExit("sp_bench needs a CUDA card")
     space = args.space or torch.cuda.device_count()
     patch = tuple(args.patch)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card_line()
     print(f"cards: {smi}", flush=True)
     ref = train_check() if args.check else None
     exact = exact_check() if args.check else None
