@@ -307,6 +307,26 @@ non-zero before the result line:
    (every kernel launch held bitwise), ``experiments/compare_preds.py``
    on the two prediction sets (exit code 0) and
    ``experiments/patch_diagnose.py`` on one case;
+27. (run after phase 26) the 2D quality probes and the training-step A/B
+   trio: (a) the quickstart's ``--rank2`` mode at full width (16
+   channels, 4 levels, bf16, batch 32, 96x96 slices, dropout 0.01
+   ``xla``) for ``Q2D_STEPS`` steps on ``Q2D_TRAIN`` generated 96x96x64
+   cases, then its evaluation of 4 cases in both modes, every dropout and
+   blend launch held bitwise as in phase 21; (b) on that workdir the five
+   ``experiments/diag2d`` tools with ``--device cuda`` (the oracle sweep at
+   one contrast and one case): each exits 0 and prints its lines, and
+   ``probe2d_r5b`` launches the dropout kernel once a dropout layer of the
+   2D network, one train-mode forward, each launch held bitwise; (c)
+   ``experiments/ab_train.py`` of ``AB_TAGS`` (64^3, batch 96) with
+   ``--reps 1`` in this process (``--inproc``) under the launch counters:
+   the dropout kernel 2 x 21 times a step, the dW kernel 21 times a step
+   for ``pdw_b96_k16`` and never for ``base_b96_k4``; then the CLI of
+   ``smoke_b2_k1`` (a child process) and ``experiments/capture_trace.py``
+   of ``base_b96_k4`` in a process of its own, its trace read by
+   ``tools/analyze_trace.py`` (busy time above 0, the dropout and dW
+   kernels absent or present as the tag sets them); (d)
+   ``tools/select_bench_tuning.py`` over (c)'s log, into the phase's
+   directory: ``configs/bench_tuning.json`` byte for byte as before;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -332,6 +352,7 @@ and power limit, and the result line
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import os
@@ -476,6 +497,16 @@ LOADER_TIMEOUT = 300.0
 # drops a kernel that then falls outside the window; one run lost 2 of 5
 # launches six traces in a row with no idle time, another 4 of 5 with 20 ms
 TRACE_PADS_S = (0.02, 0.1, 0.25, 0.5, 1.0, 2.0)
+# phase 27: the probes' workdir is the 2D quickstart at full width, cut to
+# a few steps and cases (the inventory of 8 cases at DropRatio 0.3 holds
+# ~150 slices, above the 64 probe2d_r5c indexes); the A/B tags at 64^3,
+# batch 96, one timed block after the first (tools/select_bench_tuning.py
+# reads their log)
+Q2D_STEPS = 4
+Q2D_TRAIN = 8
+AB_TAGS = ("base_b96_k4", "pdw_b96_k16")
+AB_REPS = 1
+AB_TIMEOUT = 300.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3739,6 +3770,197 @@ def phase_tools(qs_workdir):
     return launches, readings
 
 
+def _lines_of(main, argv, tag):
+    """Exit code and output lines of a tool's ``main(argv)``, each echoed
+    with the phase's tag."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = main(argv)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        say(f"[27] {tag}: {line}")
+    return code, lines
+
+
+def _prefixes(lines, prefixes) -> bool:
+    return [x[:len(p)] for x, p in zip(lines, prefixes)] == list(prefixes) \
+        and len(lines) == len(prefixes)
+
+
+def phase_probes_ab(tmp):
+    """Phase 27: the 2D quality probes on a full-width 2D quickstart
+    workdir, the A/B trio on the flagship step; ``(dropout launches, dW
+    launches, blend launches)`` of its main paths."""
+    from vnet_tpu_torch import quickstart
+    from vnet_tpu_torch.experiments import ab_train
+    from vnet_tpu_torch.experiments.diag2d import (oracle2d_r5,
+                                                   oracle2d_sweep,
+                                                   probe2d_r5, probe2d_r5b,
+                                                   probe2d_r5c)
+    from vnet_tpu_torch.models import build_network
+    from vnet_tpu_torch.tools import analyze_trace, select_bench_tuning
+
+    t_phase = time.perf_counter()
+    tuning_path = os.path.join(ROOT, "configs", "bench_tuning.json")
+    with open(tuning_path, "rb") as f:
+        tuning_bytes = f.read()
+    n_dropout_2d = len(build_network(
+        "VNet", num_classes=3, spatial_rank=2, device="cpu").dropouts)
+
+    # (a) the probes' workdir: the 2D quickstart at full width
+    wd = os.path.join(tmp, "q2d")
+    reset_counts()
+    t0 = time.perf_counter()
+    with _holding() as (held_blends, held_drops):
+        result = quickstart.main(["--workdir", wd, "--steps", str(Q2D_STEPS),
+                                  "--rank2", "--n-train", str(Q2D_TRAIN),
+                                  "--drop-ratio", "0.3", "--min-pixel", "4",
+                                  "--device", "cuda"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    out = result["quickstart"]
+    with open(os.path.join(wd, "config.json")) as f:
+        cfg = json.load(f)
+    ts, es = cfg["TrainingSetting"], cfg["EvaluationSetting"]
+    cases = sorted(os.listdir(os.path.join(wd, "evaluate")))
+    # slice-stacked: every z-slice of a 96x96x64 case is one 96^2 patch
+    batches = 2 * len(cases) * -(-64 // es["BatchSize"])
+    say(f"[27] (a) quickstart --rank2, full width: {out['steps']} steps at "
+        f"batch {out['batch']}, patch {out['patch']}, in {wall:.2f} s "
+        f"(wall {out['wall']}); dice {out['dice']}; launches {counts}; "
+        f"{n_dropout_2d} dropout layers; {batches} patch batches")
+    check(out["steps"] == Q2D_STEPS and ts["Precision"] == "bfloat16"
+          and ts["BatchSize"] == 32 and ts["PatchShape"] == [96, 96]
+          and ts["Networks"]["NumChannel"] == 16
+          and ts["Networks"]["NumLevels"] == 4
+          and ts["Networks"]["Dropout"] == 0.01, "not the full-width 2D "
+                                                 "recipe")
+    check(counts["dropout"] == 2 * n_dropout_2d * Q2D_STEPS,
+          f"2D dropout launches {counts['dropout']} != "
+          f"{2 * n_dropout_2d * Q2D_STEPS}")
+    check(counts["blend_accumulate"] == batches,
+          f"2D blend launches {counts['blend_accumulate']} != {batches}")
+    check(sorted(out["dice"]) == ["batch_stats", "ema"]
+          and _dice_ok(out["dice"]), f"dice {out['dice']}")
+    _check_held("27", held_blends, held_drops, counts)
+    drops, blends = counts["dropout"], counts["blend_accumulate"]
+
+    # (b) the five diag2d tools on that workdir
+    t0 = time.perf_counter()
+    code, lines = _lines_of(oracle2d_r5.main, ["--workdir", wd],
+                            "oracle2d_r5")
+    check(code == 0 and _prefixes(lines, ["oracle pooled dice: class1 "]
+                                  + [f"{c}: oracle dice [" for c in cases]),
+          "oracle2d_r5")
+    code, lines = _lines_of(oracle2d_sweep.main, ["--contrasts", "2.0",
+                                                  "--n-cases", "1"],
+                            "oracle2d_sweep")
+    check(code == 0 and _prefixes(lines, ["contrast 2.0: oracle pooled "
+                                          "dice class1 "]), "oracle2d_sweep")
+    probe_args = ["--workdir", wd, "--device", "cuda"]
+    reset_counts()
+    code, lines = _lines_of(probe2d_r5.main, probe_args, "probe2d_r5")
+    check(code == 0 and _prefixes(lines, ["A  ", "B  ", "C  ", "C1 "]),
+          "probe2d_r5")
+    with _holding() as (held_blends, held_drops):
+        code, lines = _lines_of(probe2d_r5b.main, probe_args, "probe2d_r5b")
+        torch.cuda.synchronize()
+    r5b = read_counts()
+    check(code == 0 and _prefixes(lines, ["eval_apply (train=False): ",
+                                          "train-mode (train=True) : "]),
+          "probe2d_r5b")
+    check(r5b["dropout"] == n_dropout_2d and r5b["dw_conv"] == 0,
+          f"probe2d_r5b launches {r5b}, expected {n_dropout_2d} dropouts")
+    _check_held("27", held_blends, held_drops, r5b)
+    drops += r5b["dropout"]
+    reset_counts()
+    code, lines = _lines_of(probe2d_r5c.main, [wd, "--device", "cuda"],
+                            "probe2d_r5c")
+    check(code == 0 and _prefixes(
+        lines, ["A train", "A class 1", "A class 2", "A2 unaug",
+                "A2 class 1", "A2 class 2", "A2 inventory", "B eval",
+                "B class 1", "B class 2", "B empty", "D eval", "D class 1",
+                "D class 2", "E eval"]), "probe2d_r5c")
+    check(read_counts()["dropout"] == 0, "an evaluation probe launched "
+                                         "dropout")
+    say(f"[27] (b) diag2d tools: {time.perf_counter() - t0:.2f} s")
+
+    # (c) ab_train in this process, then its CLI and capture_trace
+    log = os.path.join(tmp, "ab.log")
+    dws = 0
+    for tag in AB_TAGS:
+        v = ab_train.VARIANTS[tag]
+        steps = v["scan"] * (1 + AB_REPS)
+        reset_counts()
+        t0 = time.perf_counter()
+        code, lines = _lines_of(ab_train.main, [
+            tag, "--log", log, "--reps", str(AB_REPS), "--device", "cuda",
+            "--inproc"], "ab_train")
+        counts = read_counts()
+        say(f"[27] (c) {tag}: {steps} steps in {time.perf_counter() - t0:.2f}"
+            f" s; launches {counts}")
+        rec = json.loads(lines[-1])
+        check(code == 0 and rec["exp"] == tag and rec["batch"] == 96
+              and rec["side"] == 64 and rec["patches_per_s"] > 0,
+              f"ab_train {tag}: {code}, {lines}")
+        check(counts["dropout"] == 2 * 21 * steps,
+              f"{tag}: dropout launches {counts['dropout']} != "
+              f"{2 * 21 * steps}")
+        n_dw = 21 * steps if v["dw"] == "pallas" else 0
+        check(counts["dw_conv"] == n_dw,
+              f"{tag}: dW launches {counts['dw_conv']} != {n_dw}")
+        drops += counts["dropout"]
+        dws += counts["dw_conv"]
+    gc.collect()
+    torch.cuda.empty_cache()  # the children below need the card's memory
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vnet_tpu_torch.experiments.ab_train",
+         "smoke_b2_k1", "--log", log, "--reps", "1"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=AB_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        say(f"[27] (c) ab_train CLI: {line}")
+    check(proc.returncode == 0 and ab_train._logged_tags(log)
+          == set(AB_TAGS) | {"smoke_b2_k1"},
+          f"ab_train CLI: {proc.returncode} {proc.stderr[-2000:]}")
+    trace_dir = os.path.join(tmp, "trace_ab")
+    proc = subprocess.run(
+        [sys.executable, "-m", "vnet_tpu_torch.experiments.capture_trace",
+         "base_b96_k4", "--trace-dir", trace_dir, "--reps", "1"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=AB_TIMEOUT)
+    check(proc.returncode == 0, f"capture_trace: {proc.stderr[-2000:]}")
+    say(f"[27] (c) capture_trace: {proc.stdout.strip().splitlines()[-1]}")
+    summary = analyze_trace.summarize(analyze_trace.read_events(
+        analyze_trace.find_trace(trace_dir)))
+    top = sorted(summary["ops"].items(), key=lambda kv: -kv[1][0])[:5]
+    say(f"[27] (c) analyze_trace: busy {summary['busy_ms']:.2f} ms over "
+        f"{summary['events']} device events; top {top}; groups "
+        f"{summary['groups']}; CLI and trace {time.perf_counter() - t0:.2f} s")
+    names = list(summary["ops"])
+    check(summary["busy_ms"] > 0
+          and any("dropout_kernel" in n for n in names)
+          and not any(n.startswith("dw_") or "dw_mma" in n for n in names),
+          "the trace of base_b96_k4 holds no dropout kernel, or a dW kernel")
+
+    # (d) the selector over (c)'s log, into the phase's directory
+    out_path = os.path.join(tmp, "bench_tuning_torch.json")
+    code, lines = _lines_of(select_bench_tuning.main,
+                            ["--log", log, "--out", out_path],
+                            "select_bench_tuning")
+    with open(tuning_path, "rb") as f:
+        unchanged = f.read() == tuning_bytes
+    check(code == 0 and lines[-1] == "WINNER_SELECTED"
+          and os.path.isfile(out_path) and unchanged,
+          f"select_bench_tuning: {code}; configs/bench_tuning.json "
+          f"unchanged {unchanged}")
+    say(f"[27] phase: {time.perf_counter() - t_phase:.1f} s")
+    return drops, dws, blends
+
 def run():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3819,6 +4041,11 @@ def run():
         tool_blends, bench_eval = phase_tools(os.path.join(qs_tmp, "q3"))
     finally:
         shutil.rmtree(qs_tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="vnet_smoke_probes_ab_")
+    try:
+        ab_drops, ab_dws, ab_blends = phase_probes_ab(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     drop_rows, drop_sums = phase_dropout_times()
 
     def timed(shape, impl):
@@ -3838,13 +4065,14 @@ def run():
              source="vnet_tpu_torch/csrc/blend_accumulate.cu",
              replaces="vnet_tpu/ops/pallas/fused.py:220",
              launches=(launches + blends_2d + qs_blends + fl_blends
-                       + tool_blends),
+                       + tool_blends + ab_blends),
              launches_in="phase 4 (3D evaluation), phase 15 (2D "
                          "evaluation, slice-stacked), phase 21 (the "
                          "quickstart's 3D and 2D evaluations), phase 22 "
-                         "(flags.evaluate) and phase 26 (benchmark_eval's "
+                         "(flags.evaluate), phase 26 (benchmark_eval's "
                          "512^3 engine, eval2d stacked and per slice, "
-                         "eval_only)",
+                         "eval_only) and phase 27 (the full-width 2D "
+                         "quickstart's evaluations)",
              at_2d=dict(shape="10 x (1, 256, 256, 3) into (64, 384, 384, 3)",
                         **blend_2d),
              at_512=dict(benchmark_eval=bench_eval, **blend_512), **blend),
@@ -3852,7 +4080,8 @@ def run():
              source="vnet_tpu_torch/csrc/dropout.cu",
              replaces="vnet_tpu/ops/pallas/dropout.py:99",
              launches=(train_counts["dropout"] + att_drops + drops_2d
-                       + sp_drops + qs_drops + fl_drops + remat_drops),
+                       + sp_drops + qs_drops + fl_drops + remat_drops
+                       + ab_drops),
              launches_in="phase 7 (training, pallas flavour), phase 13 "
                          "(attention step, xla flavour), phase 15 (2D "
                          "training, xla flavour), phase 23 (the spatially "
@@ -3861,7 +4090,11 @@ def run():
                          "xla flavour), phase 22 (flags.train "
                          "--attention, bits8 flavour) and phase 25 "
                          "(config.json's training with Remat, xla "
-                         "flavour, forward, recompute and backward)",
+                         "flavour, forward, recompute and backward) and "
+                         "phase 27 (the full-width 2D quickstart and "
+                         "probe2d_r5b's train-mode forward, xla flavour; "
+                         "ab_train's base_b96_k4, xla, and pdw_b96_k16, "
+                         "bits8)",
              times_are="xla flavour at (96, 128, 32, 32, 32) bf16: device "
                        "ms a launch, the median of a profiler trace "
                        "(event_ms: CUDA events around 50 launches; call_ms: "
@@ -3875,8 +4108,9 @@ def run():
         dict(name="dw_conv_pallas", route="cuda",
              source="vnet_tpu_torch/csrc/dw_conv.cu",
              replaces="vnet_tpu/ops/pallas/dw_conv.py:209",
-             launches=train_counts["dw_conv"],
-             launches_in="phase 7 (training, packed)",
+             launches=train_counts["dw_conv"] + ab_dws,
+             launches_in="phase 7 (training, packed) and phase 27 "
+                         "(ab_train's pdw_b96_k16)",
              times_are="per packed training step: launches per step x ms, "
                        "summed over phase 6's nine packed shapes", **dw),
         dict(name="bn_stats", route="cuda",

@@ -82,7 +82,14 @@ def test_port_modules_cover_the_package():
                    "tools.benchmark_eval", "tools.benchmark_loader",
                    "tools.analyze_trace", "experiments.eval2d",
                    "experiments.eval_only", "experiments.compare_preds",
-                   "experiments.patch_diagnose"):
+                   "experiments.patch_diagnose", "experiments.diag2d",
+                   "experiments.diag2d.oracle2d_r5",
+                   "experiments.diag2d.oracle2d_sweep",
+                   "experiments.diag2d.probe2d_r5",
+                   "experiments.diag2d.probe2d_r5b",
+                   "experiments.diag2d.probe2d_r5c", "experiments.ab_train",
+                   "experiments.capture_trace",
+                   "tools.select_bench_tuning"):
         assert f"vnet_tpu_torch.{module}" in PORT_MODULES, module
     assert {os.path.basename(p) for p in CUDA_TESTS} == {
         f"test_torch_cuda_{k}.py" for k in ("blend", "fused", "dropout",

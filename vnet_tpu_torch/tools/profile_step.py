@@ -75,12 +75,16 @@ CONV_IMPLS = ("packed", "direct")
 def flagship_step(impl: str, batch: int, device="cuda", seed: int = 0,
                   patch=PATCH, conv_impl: str = "packed", mesh=None,
                   dtype=torch.bfloat16, compute_metrics: bool = False,
-                  dw_impl=None, remat: bool = False):
+                  dw_impl=None, remat: bool = False,
+                  dropout_rate: float = 0.01):
     """``(state, step_fn, images, labels)`` of the flagship workload;
     ``batch`` is the global batch, and with a ``mesh`` the step is the
     mesh's and the tensors are the rank's rows (and, with a space axis, its
-    slab of the first spatial axis). ``dw_impl`` defaults to ``impl``."""
-    net = build_network("VNet", num_classes=NUM_CLASSES, dropout_rate=0.01,
+    slab of the first spatial axis). ``dw_impl`` defaults to ``impl``;
+    ``dropout_rate`` 0 takes dropout out (``experiments/ab_train.py``'s
+    ``nodrop`` bound)."""
+    net = build_network("VNet", num_classes=NUM_CLASSES,
+                        dropout_rate=dropout_rate,
                         norm="batch", dtype=dtype, device=device,
                         generator=torch.Generator().manual_seed(seed),
                         dropout_impl=impl, dw_impl=dw_impl or impl,
