@@ -55,6 +55,7 @@ import torch
 from ..device import resolve_device
 from ..ops.blend import blend_accumulate_patches, blend_accumulate_plain
 from ..parallel.mesh import Mesh
+from ..profiler import span
 
 
 def patch_starts_1d(dim: int, patch: int, stride: int) -> list:
@@ -148,12 +149,13 @@ class SlidingWindowInference:
                              np.ones(self.patch_shape, np.float32))
 
     def _probs(self, patches: torch.Tensor) -> torch.Tensor:
-        logits = self.apply_fn(patches)
-        probs = torch.softmax(logits.float(), dim=-1)
-        if self.hard_accumulate:
-            pred = torch.argmax(probs, dim=-1).float()
-            probs = torch.cat([pred[..., None], probs], dim=-1)
-        return probs
+        with span("vnet.engine.forward"):
+            logits = self.apply_fn(patches)
+            probs = torch.softmax(logits.float(), dim=-1)
+            if self.hard_accumulate:
+                pred = torch.argmax(probs, dim=-1).float()
+                probs = torch.cat([pred[..., None], probs], dim=-1)
+            return probs
 
     def device_volume(self, volume) -> torch.Tensor:
         """``volume`` as a float32 tensor on the engine's device: a tensor
@@ -173,6 +175,10 @@ class SlidingWindowInference:
         tensors on the device, over the volume's spatial axes:
         ``argmax(softmax_sum)`` is the label and ``softmax_sum / weight``
         the probability maps."""
+        with span("vnet.engine.volume"):
+            return self._run(volume)
+
+    def _run(self, volume):
         vol = self.device_volume(volume)
         one_slice = self.rank == 2 and not self.slice_stacked
         if one_slice:

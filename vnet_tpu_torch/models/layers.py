@@ -96,6 +96,7 @@ from ..parallel.mesh import (active_mesh, all_reduce_mean,
                              group_all_reduce_mean, mesh_scope)
 from ..parallel.spatial import (current_partition, halo_exchange_asym,
                                 partition_scope)
+from ..profiler import span
 
 NORM_KINDS = ("batch", "batch_stats", "group", "instance", "none")
 ACTIVATIONS = ("relu", "prelu", "lrelu")
@@ -165,6 +166,7 @@ class _Seen:
         scopes = contextlib.ExitStack()
         self.entries.append((modes, seeds, token, scopes))
         try:
+            scopes.enter_context(span("vnet.remat.recompute"))
             scopes.enter_context(mesh_scope(self.mesh))
             scopes.enter_context(partition_scope(self.partition))
         except BaseException:

@@ -9,10 +9,36 @@ or, over a window of training steps, the device's idle share.
 ``StepTimer``: host clock around each step; on the card the caller
 synchronises inside the timed block (``Trainer`` reads the step's loss
 there), so a time is the step's, not its enqueue's.
+
+``span(name)``: a ``record_function`` span at one of the port's phase
+boundaries, so that a trace of the card puts each kernel under the phase
+whose host code launched it (the launch and the kernel share a CUDA
+correlation id). With no profiler running it is a null context, one flag
+check. The spans, and the reading of the benchmark's span attribution
+(``portbench/yardstick/spans.py``: device ms of the kernels each span
+launched, less those of the spans inside it) that reads each:
+
+* ``vnet.train.step``, ``Trainer.train_step``: the batch's host-to-device
+  copies, the device augmentation, the learning rate, the optimizer and
+  the logged metrics (``step_own_ms.train``; the device's idle time inside
+  it, ``step_idle_ms.train``);
+* ``vnet.train.forward``, the train step's network forward and its loss
+  terms (``forward_ms.train``);
+* ``vnet.train.backward``, the train step's ``loss.backward()``, whose
+  kernels autograd's device thread launches while the step's thread waits
+  in the span (``backward_ms.train``);
+* ``vnet.remat.recompute``, one ``Remat`` block's recompute in the
+  backward pass, on autograd's thread (``recompute_ms.train``);
+* ``vnet.engine.volume``, ``SlidingWindowInference.__call__``: the
+  volume's upload, the accumulator, each batch's gather, window weighting,
+  flags and blend (``engine_own_ms.eval``);
+* ``vnet.engine.forward``, one engine batch's network forward and softmax
+  (``engine_forward_ms.eval``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import statistics
 import time
@@ -136,6 +162,17 @@ class TraceCapture:
         self.stop()
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` span named ``name`` while a profiler records,
+    else a null context (module docstring)."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
 @dataclass
 class StepTimer:
     """Online step timing: ``with timer:`` around each step; the first
@@ -159,13 +196,6 @@ class StepTimer:
     @property
     def mean(self) -> float:
         return sum(self.times) / len(self.times) if self.times else float("nan")
-
-    @property
-    def p50(self) -> float:
-        if not self.times:
-            return float("nan")
-        s = sorted(self.times)
-        return s[len(s) // 2]
 
     def throughput(self, items_per_step: int) -> float:
         return items_per_step / self.mean if self.times else float("nan")

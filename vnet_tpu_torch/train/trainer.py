@@ -110,7 +110,7 @@ from ..parallel.mesh import (Mesh, batch_rows, data_parallel,
                              data_parallel_size, make_mesh,
                              make_multislice_mesh)
 from ..parallel.spatial import current_partition, validate_partition
-from ..profiler import StepTimer, TraceCapture
+from ..profiler import StepTimer, TraceCapture, span
 from . import checkpoints
 from .events import EventWriter
 from .images import log_batch_images
@@ -218,20 +218,22 @@ def make_train_step(loss_cfg, num_classes: int,
         set_learning_rate(opt, schedule, state.step)  # pre-increment count
         opt.zero_grad(set_to_none=True)
         with data_parallel(mesh):
-            out = net(images, dropout_seed=dropout_seed)
-            logits = out[0] if is_attention else out
-            loss, aux = segmentation_loss(
-                logits, labels, name=loss_cfg.name, num_classes=num_classes,
-                weights=loss_cfg.weights, alpha=loss_cfg.alpha,
-                partition=current_partition())
-            if is_attention and distance_maps is not None:
-                att_loss = attention_distance_loss(
-                    out[1], distance_maps, kind=loss_cfg.attention_kind,
-                    scale=loss_cfg.attention_scale)
-                aux = dict(aux, attention_loss=att_loss)
-                loss = loss + att_loss
-                aux["total_loss"] = loss
-            loss.backward()
+            with span("vnet.train.forward"):
+                out = net(images, dropout_seed=dropout_seed)
+                logits = out[0] if is_attention else out
+                loss, aux = segmentation_loss(
+                    logits, labels, name=loss_cfg.name,
+                    num_classes=num_classes, weights=loss_cfg.weights,
+                    alpha=loss_cfg.alpha, partition=current_partition())
+                if is_attention and distance_maps is not None:
+                    att_loss = attention_distance_loss(
+                        out[1], distance_maps, kind=loss_cfg.attention_kind,
+                        scale=loss_cfg.attention_scale)
+                    aux = dict(aux, attention_loss=att_loss)
+                    loss = loss + att_loss
+                    aux["total_loss"] = loss
+            with span("vnet.train.backward"):
+                loss.backward()
         if mesh is not None:
             mesh.average_gradients(net.parameters())
         opt.step()
@@ -393,15 +395,16 @@ class Trainer:
         """One step on host arrays (the rank's rows of the global batch,
         whole patches); an attention network without distance maps
         regresses its gate to zero maps, as the JAX trainer does."""
-        if self.is_attention and distance_maps is None:
-            distance_maps = np.zeros(np.shape(labels), np.float32)
-        dmaps = (None if distance_maps is None
-                 else self._tensor(distance_maps, np.float32))
-        images, labels, mirror = self._slabs(images, labels)
-        return self._train_step_fn(state, self._tensor(images, np.float32),
-                                   self._tensor(labels, np.int32),
-                                   dropout_seed, dmaps, self._device_aug,
-                                   mirror)
+        with span("vnet.train.step"):
+            if self.is_attention and distance_maps is None:
+                distance_maps = np.zeros(np.shape(labels), np.float32)
+            dmaps = (None if distance_maps is None
+                     else self._tensor(distance_maps, np.float32))
+            images, labels, mirror = self._slabs(images, labels)
+            return self._train_step_fn(
+                state, self._tensor(images, np.float32),
+                self._tensor(labels, np.int32), dropout_seed, dmaps,
+                self._device_aug, mirror)
 
     def eval_step(self, state: TrainState, images, labels) -> TrainStepOutput:
         images, labels, _ = self._slabs(images, labels)
