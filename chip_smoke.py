@@ -3,14 +3,21 @@
     python3 chip_smoke.py
 
 Phases, each reported on its own lines; any failure raises and exits
-non-zero before the result line:
+non-zero before the result line. Wherever a phase counts the kernels'
+launches, every batch norm's launches (``bn_stats`` for its forward's
+sums, then ``ops/bn_act.py``'s apply, gradient sums and dx) must equal what
+its calls owe (``held_bn``: the sums and the apply once a call, the sums
+only with batch statistics; the gradient sums and dx once each time
+autograd differentiates a call's output, dx only where the input needs a
+gradient); the other counts are then held as each phase says:
 
 1. device and build: card name, ``nvidia-smi`` name and power limit,
-   whether PyYAML and tensorboardX import; the six kernel sources (blend,
-   dropout, dW, BN statistics, fused tail, row blend) built from source in
-   parallel, one ``nvcc`` each, with their build times and ptxas registers
-   and spills; the tensor-core instructions in the SASS of the dW library's
-   bf16 kernels (``cuobjdump --dump-sass``); the dropout kernels' SASS: no
+   whether PyYAML and tensorboardX import; the seven kernel sources (blend,
+   dropout, dW, BN statistics, fused tail, row blend, batch norm +
+   activation) built from source in parallel, one ``nvcc`` each, with
+   their build times and ptxas registers and spills; the tensor-core
+   instructions in the SASS of the dW library's bf16 kernels
+   (``cuobjdump --dump-sass``); the dropout kernels' SASS: no
    local memory, Philox's wide multiplies, its key schedule made once per
    loop (not per call), 16-byte loads and stores;
 2. blend kernel vs its plain PyTorch version on the card, at the slice's
@@ -176,8 +183,10 @@ non-zero before the result line:
    ``tools/dp_bench.py``'s functions: (a) the full-width packed flagship
    network's training step in float32 with TF32 off, global batch 4 at
    64^3, ``pallas`` dropout 0.01 through the kernel and the dW kernel:
-   loss, every gradient and running averages within ``dp_bench.RTOL`` of
-   the largest of their kind, the parameters after Adam within it beyond
+   loss and running averages within ``dp_bench.RTOL`` of the largest of
+   their kind, the ranks' and the one process's gradients each within
+   ``dp_bench.F64_RTOL`` of the largest of the same step in float64 on the
+   host's CPU, the parameters after Adam within ``dp_bench.RTOL`` beyond
    Adam's first-step amplification of the gradients' difference (a
    gradient near 0 moves its parameter by up to lr whatever its sign;
    ``dp_bench.LR``'s comment), the two ranks' parameters and averages
@@ -224,9 +233,10 @@ non-zero before the result line:
    4 levels, (1, 2, 3, 3), bottom 3, dropout 0.01 ``pallas``) at 64^3,
    batch 2, each rank a 32x64x64 slab of every patch, against one process
    (``tools/sp_bench.py``: loss, gradients, running averages and the
-   parameters after Adam held as phase 20 holds them, the gradients to
-   ``sp_bench.GRAD_RTOL`` and no farther from the float64 step on the
-   host's CPU than the one process's; every dropout mask joined over the
+   parameters after Adam held as phase 20 holds them, the one process's
+   gradients within ``dp_bench.F64_RTOL`` of the float64 step on the
+   host's CPU and the ranks' no farther from it than the one process's;
+   every dropout mask joined over the
    slabs bitwise the one process's, every dropout launch of the ranks held
    bitwise against ``dropout_plain`` with its row map);
    (b) the bf16 step at batch ``SP_BATCH``: its first step with every
@@ -327,6 +337,26 @@ non-zero before the result line:
    kernels absent or present as the tag sets them); (d)
    ``tools/select_bench_tuning.py`` over (c)'s log, into the phase's
    directory: ``configs/bench_tuning.json`` byte for byte as before;
+28. (run right after phase 26 (c)) the fused batch norm + activation
+   kernels (``csrc/bn_act.cu``, ``ops/bn_act.py``): each pass against its
+   plain version at every distinct batch-norm site of the benchmark's three
+   cells in bf16 (``tools/bn_act_bench.py``: config.json's packed V-Net at
+   batch 32 and [256, 256, 32], the attention-gated one at batch 16 and
+   64^3, config_eval_gaussian's at batch 10 with running averages) and at
+   the output norm's C = 3 unpacked (cell 1's is packed 24): the forward's
+   sums (``bn_stats``) and the gradient sums per channel within
+   ``bn_act_bench.STATS_RTOL`` of the sum of |terms|, the apply pass
+   (output, saved statistics, running averages) bitwise given the same
+   sums, dx within one bf16 ulp; the
+   level-0 packed site (32, 128, 128, 128, 16) timed forward and backward
+   beside its byte bound and the eager chain; a traced training step of
+   the small flagship (with and without ``Remat``) and attention networks:
+   the forward's sums and apply once per batch-norm call, gradient sums
+   and dx once per site, the trace's kernels the counted ones and none
+   named like a
+   convolution, matrix product, optimizer or copy kernel; ``export_forward``
+   of a small V-Net on ``cuda`` launches none of them and agrees with the
+   module's eval forward, which does;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -373,7 +403,7 @@ TRAIN_CONFIG = os.path.join(ROOT, "configs", "config.json")
 ATTENTION_CONFIG = os.path.join(ROOT, "configs",
                                 "config_attention_multimodal.json")
 KERNELS = ("blend_accumulate", "dropout", "dw_conv", "bn_stats",
-           "bias_prelu_residual", "blend_rows")
+           "bias_prelu_residual", "blend_rows", "bn_act")
 SLICE_VOLUME = (384, 384, 64)
 SLICE_PATCH = (256, 256, 32)
 SLICE_STRIDE = (128, 128, 16)
@@ -835,7 +865,7 @@ def phase_main_path(tmp):
                     "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = held_bn(read_counts(), "4")
     launches = counts["blend_accumulate"]
     width = _counted()["blend_accumulate"].last_width
 
@@ -890,6 +920,8 @@ def phase_main_path(tmp):
 def _counted():
     from vnet_tpu_torch.ops.blend import (blend_accumulate_patches,
                                           blend_accumulate_rows)
+    from vnet_tpu_torch.ops.bn_act import (bn_act_apply, bn_act_dx,
+                                           bn_act_grad_sums)
     from vnet_tpu_torch.ops.dropout import dropout_apply
     from vnet_tpu_torch.ops.dw_conv import dw_conv
     from vnet_tpu_torch.ops.fused import (bn_grad_stats, bn_stats,
@@ -899,16 +931,80 @@ def _counted():
             "dropout": dropout_apply, "dw_conv": dw_conv,
             "bn_stats": bn_stats, "bn_grad_stats": bn_grad_stats,
             "bias_prelu_residual": fused_bias_prelu_residual,
-            "blend_rows": blend_accumulate_rows}
+            "blend_rows": blend_accumulate_rows,
+            "bn_act_apply": bn_act_apply,
+            "bn_act_grad_sums": bn_act_grad_sums, "bn_act_dx": bn_act_dx}
+
+
+# the wrappers a batch norm launches on the card: its forward's sums
+# (ops/fused.py's bn_stats, which phase 9 also calls itself), the apply,
+# the gradient sums and dx (ops/bn_act.py)
+BN_ACT = ("bn_stats", "bn_act_apply", "bn_act_grad_sums", "bn_act_dx")
+# what the batch-norm calls since reset_counts owe each of them
+_OWED = dict.fromkeys(BN_ACT, 0)
+_HOOKED = []
+
+
+def _hook_norms() -> None:
+    """Forward hooks on every module of the process (once): a ``BatchNorm``
+    call on the card, outside ``torch.export``'s trace, owes the apply one
+    launch and, with the batch's statistics, the sums one (counted before
+    the call: a ``Remat`` recompute may stop inside a call, once the
+    Function has launched both); each time autograd takes its output's
+    gradient (it runs the Function's backward then; never for a
+    recompute's output, whose backward is the forward's), the gradient sums
+    one and, where the input needs a gradient, dx one."""
+    if _HOOKED:
+        return
+    from torch.nn.modules.module import (register_module_forward_hook,
+                                         register_module_forward_pre_hook)
+
+    from vnet_tpu_torch.models.layers import BatchNorm
+
+    def counted(module, args) -> bool:
+        return (isinstance(module, BatchNorm) and args[0].is_cuda
+                and not torch.compiler.is_compiling())
+
+    def owe_forward(module, args):
+        if counted(module, args):
+            _OWED["bn_act_apply"] += 1
+            _OWED["bn_stats"] += not args[1]
+
+    def owe_backward(module, args, out):
+        if counted(module, args) and out.requires_grad:
+            dx = args[0].requires_grad
+
+            def backward(grad):
+                _OWED["bn_act_grad_sums"] += 1
+                _OWED["bn_act_dx"] += dx
+
+            out.register_hook(backward)
+
+    _HOOKED.extend([register_module_forward_pre_hook(owe_forward),
+                    register_module_forward_hook(owe_backward)])
 
 
 def reset_counts() -> None:
+    _hook_norms()
     for wrapper in _counted().values():
         wrapper.launches = 0
+    _OWED.update(dict.fromkeys(BN_ACT, 0))
 
 
 def read_counts() -> dict:
     return {name: w.launches for name, w in _counted().items()}
+
+
+def held_bn(counts: dict, tag: str, **own) -> dict:
+    """``counts`` (a :func:`read_counts` reading) without the batch-norm
+    wrappers, once their launches equal what the batch-norm calls since
+    :func:`reset_counts` owe them (``own``: a wrapper's launches by the
+    phase's own calls beside them)."""
+    got = {k: counts[k] for k in BN_ACT}
+    owed = {k: v + own.get(k, 0) for k, v in _OWED.items()}
+    check(got == owed, f"[{tag}] batch-norm launches {got}, owed {owed} by "
+                       f"the batch-norm calls")
+    return {k: v for k, v in counts.items() if k not in BN_ACT}
 
 
 def phase_dropout_times():
@@ -1325,7 +1421,9 @@ def phase_train(tmp):
         restore()
         restore_groups()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    raw = read_counts()
+    counts = held_bn(raw, "7")
+    bn_launches = {k: raw[k] for k in BN_ACT}
     say(f"[7] --devices 0 on {torch.cuda.device_count()} card(s): process "
         f"groups (backend, world size) {groups}, collectives called "
         f"{dict(collectives)}")
@@ -1343,8 +1441,9 @@ def phase_train(tmp):
     say(f"[7] train main path: {steps} steps at batch {ts['BatchSize']}, "
         f"patch {TRAIN_PATCH}, in {wall:.2f} s (incl. data loading, model "
         f"build, first-call warm-up, checkpoints); losses {losses}; "
-        f"launches {counts}; module tree: {n_dropout} dropout layers, "
-        f"{n_dw} weight gradients on the dW kernel (packed)")
+        f"launches {counts}, batch norm {bn_launches}; module tree: "
+        f"{n_dropout} dropout layers, {n_dw} weight gradients on the dW "
+        f"kernel (packed)")
     check(state.step == steps, f"trained {state.step} steps, not {steps}")
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"losses {losses}")
@@ -1372,7 +1471,7 @@ def phase_train(tmp):
     say(f"[7] checkpoint step {saved['step']} epoch {saved['epoch']} "
         f"restores into a fresh trainer: weights equal={same}")
     check(same, "restored weights differ from the trained ones")
-    return counts
+    return counts, bn_launches
 
 
 def _spy_groups():
@@ -1400,7 +1499,7 @@ def _flagship_steps(impl, batch, conv_impl, remat=False):
     timed_steps(state, step, images, labels, 1)  # warm-up
     reset_counts()
     times, losses = timed_steps(state, step, images, labels, 3)
-    counts = read_counts()
+    counts = held_bn(read_counts(), "8")
     return (statistics.median(times), torch.cuda.max_memory_allocated(),
             losses, {k: v / 3 for k, v in counts.items() if v})
 
@@ -1579,7 +1678,8 @@ def phase_zoo(tmp):
         out = trainer.train_step(state, images, labels, 8)
         loss = float(out.loss)
         step_ms = (time.perf_counter() - t0) * 1e3
-        counts = {k: v for k, v in read_counts().items() if v}
+        counts = {k: v for k, v in held_bn(read_counts(), "19").items()
+                  if v}
         evaluator = Evaluator(load_config(path),
                               state_dict=net.state_dict(), device="cuda")
         t0 = time.perf_counter()
@@ -1797,10 +1897,12 @@ def phase_bn():
     counts = read_counts()
     say(f"[9] batch_norm_train launches (two shapes, pallas forward and "
         f"backward, plus the layers.BatchNorm comparison's): {counts}")
-    check(counts["bn_stats"] == 3 and counts["bn_grad_stats"] == 3,
+    held_bn(counts, "9", bn_stats=3)
+    check(counts["bn_grad_stats"] == 3,
           f"batch_norm_train pallas launched {counts}")
     return ([dict(t, bound_by="bytes") for t in totals],
-            (counts["bn_stats"], counts["bn_grad_stats"]))
+            (counts["bn_stats"] - _OWED["bn_stats"],
+             counts["bn_grad_stats"]))
 
 
 def phase_tail():
@@ -2117,7 +2219,7 @@ def phase_attention_step():
         losses.append(float(out.loss))  # synchronises
         times.append((time.perf_counter() - t0) * 1e3)
         att_losses.append(float(out.aux["attention_loss"]))
-    counts = read_counts()
+    counts = held_bn(read_counts(), "13")
     peak = torch.cuda.max_memory_allocated()
     ms = statistics.median(times[ATT_WARMUP:])
     per_step = counts["dropout"] / ATT_STEPS
@@ -2160,7 +2262,7 @@ def _dp_evaluate(mesh, cfg_path, case_dir, device):
         reset_counts()
         label, probs = ev.evaluate_case(case_dir)
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = held_bn(read_counts(), "20d")
     finally:
         sliding_window.blend_accumulate_patches = kernel
     return dict(label=np.asarray(label.data),
@@ -2209,6 +2311,7 @@ def phase_data_parallel(tmp):
     t0 = time.perf_counter()
     ref_a = dp_bench.train_check()
     torch.cuda.empty_cache()
+    exact_a = dp_bench.exact_check()
     ref_d = _dp_evaluate(None, cfg_path, case_dir, "cuda")
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
@@ -2218,14 +2321,15 @@ def phase_data_parallel(tmp):
            args=(tmp, cfg_path, case_dir), timeout=DP_TIMEOUT)
     ranks = [torch.load(os.path.join(tmp, f"dp_rank{r}.pt"),
                         weights_only=False) for r in range(DP_RANKS)]
-    say(f"[20] one process {ref_s:.1f} s; {DP_RANKS} gloo ranks on card 0 "
+    say(f"[20] one process {ref_s:.1f} s (the float64 step on the host's "
+        f"CPU included); {DP_RANKS} gloo ranks on card 0 "
         f"{time.perf_counter() - t0:.1f} s (spawn, import, build included)")
     check([(r["rank"], r["world"]) for r in ranks] == [(0, 2), (1, 2)],
           "ranks did not form a group of two")
 
     # (a) float32, TF32 off: the ranks' step is the single process's;
     # (b) bf16 at batch 96: a functional reading, both ranks on one card
-    failed = (dp_bench.report_train(ref_a, ranks, "[20a]")
+    failed = (dp_bench.report_train(ref_a, exact_a, ranks, "[20a]")
               + dp_bench.report_timing(ranks, "[20b]"))
     check(not failed, "; ".join(failed))
 
@@ -2292,7 +2396,7 @@ def _sp_rank(tmp):
     with _holding() as (blends, drops):
         a = sp_bench.train_check(mesh, mesh.device)
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = held_bn(read_counts(), "23a")
     flat = torch.cat([v.float().reshape(-1) for v in a["state"].values()]
                      ).to(mesh.device)
     ref = flat.clone()
@@ -2319,7 +2423,7 @@ def _sp_rank(tmp):
         torch.backends.cuda.matmul.allow_tf32 = True
     if mesh.rank == 0:
         out["logits"] = logits.cpu().numpy()
-    out["counts"] = read_counts()
+    out["counts"] = held_bn(read_counts(), "23")
     torch.save(out, os.path.join(tmp, f"sp_rank{mesh.rank}.pt"))
 
 
@@ -2480,7 +2584,7 @@ def phase_attention_cli(tmp):
                   "--profile_dir", trace_dir])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    train_counts = read_counts()
+    train_counts = held_bn(read_counts(), "14")
     check(state.step == steps, f"trained {state.step} steps")
     traces = [n for n in os.listdir(trace_dir) if n.endswith(".json")]
     check(len(traces) == 1, f"trace files {traces}")
@@ -2525,7 +2629,7 @@ def phase_attention_cli(tmp):
     finally:
         sliding_window.blend_accumulate_patches = kernel
     eval_s = time.perf_counter() - t0
-    eval_counts = read_counts()
+    eval_counts = held_bn(read_counts(), "14")
     labels = [set(np.unique(read_image(r).data).tolist()) for r in results]
     say(f"[14] attention CLI: {steps} training steps at batch "
         f"{ts['BatchSize']} with "
@@ -2638,7 +2742,7 @@ def phase_2d_cli(tmp):
     state = main(["-p", "train", "--config_json", path, "--device", "cuda"])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    counts = read_counts()
+    counts = held_bn(read_counts(), "15")
     n_dropout = len(state.network.dropouts)
     with open(os.path.join(ts["LogDir"], "train", "scalars.jsonl")) as f:
         losses = [json.loads(line)["value"] for line in f
@@ -2692,7 +2796,7 @@ def phase_2d_cli(tmp):
     finally:
         sliding_window.blend_accumulate_patches = kernel
     eval_s = time.perf_counter() - t0
-    eval_counts = read_counts()
+    eval_counts = held_bn(read_counts(), "15")
     grid = sliding_window.build_patch_grid(SLICE_VOLUME[:2], PATCH_2D,
                                            EVAL_STRIDE_2D)
     per_case = -(-SLICE_VOLUME[2] * len(grid) // SLICE_BATCH)
@@ -2751,7 +2855,7 @@ def _step_2d():
     timed_steps(state, step, images, labels, ATT_WARMUP)
     reset_counts()
     times, losses = timed_steps(state, step, images, labels, ATT_STEPS)
-    counts = read_counts()
+    counts = held_bn(read_counts(), "16")
     peak = torch.cuda.max_memory_allocated()
     formats = []
     hooks = [m.register_forward_pre_hook(lambda mod, args: formats.append(
@@ -2957,7 +3061,7 @@ def phase_quickstart(tmp):
         result = quickstart.main(argv)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = held_bn(read_counts(), "21")
     out = result["quickstart"]
     with open(os.path.join(wd, "config.json")) as f:
         cfg = json.load(f)
@@ -3007,7 +3111,7 @@ def phase_quickstart(tmp):
                                   "--device", "cuda"])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = held_bn(read_counts(), "21")
     out = result["quickstart"]
     with open(os.path.join(wd2, "config.json")) as f:
         es2 = json.load(f)["EvaluationSetting"]
@@ -3063,7 +3167,7 @@ def phase_flags(tmp):
             "--device", "cuda"])
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    train_counts = read_counts()
+    train_counts = held_bn(read_counts(), "22")
     n_dropout = len(state.network.dropouts)
     with open(os.path.join(ckpt, "network_config.json")) as f:
         sidecar = json.load(f)
@@ -3084,7 +3188,7 @@ def phase_flags(tmp):
         torch.cuda.synchronize()
     _check_held("22", held_blends, [], dict(read_counts(), dropout=0))
     eval_s = time.perf_counter() - t0
-    eval_counts = read_counts()
+    eval_counts = held_bn(read_counts(), "22")
     batches = len(paths) * _patch_batches((48, 48, 48), (patch,) * 3,
                                           (patch // 2,) * 3, 4)
     labels = [np.asarray(read_image(p).data) for p in paths]
@@ -3224,7 +3328,7 @@ def phase_export(tmp):
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = held_bn(read_counts(), "24")  # the eager references' norms
     for line in proc.stdout.splitlines():
         say(f"[24] vnet_infer_torch: {line}")
     check(proc.returncode == 0,
@@ -3289,7 +3393,7 @@ def _remat_check_step(remat):
     with _holding() as (_, drops):
         out = step(state, images, labels, dropout_seed=SEED + 25)
         torch.cuda.synchronize()
-    counts = {k: v for k, v in read_counts().items() if v}
+    counts = {k: v for k, v in held_bn(read_counts(), "25").items() if v}
     for h in handles:
         h.remove()
     return dict(loss=float(out.loss), masks=masks, drops=drops,
@@ -3403,7 +3507,7 @@ def phase_remat(tmp):
                       "cuda"])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = held_bn(read_counts(), "25")
     peak = torch.cuda.max_memory_allocated()
     with open(os.path.join(ts["LogDir"], "train", "scalars.jsonl")) as f:
         losses = [json.loads(line)["value"] for line in f
@@ -3471,6 +3575,57 @@ def _blend_margin():
         check(equal and taken == width and corner > 0,
               f"the blend at {edge}^3 x {c}: equal {equal}, width {taken}")
         del acc, contrib, got, ref
+
+
+def phase_bn_act():
+    """Phase 28: the fused batch norm + activation kernels at the cells'
+    sites, the level-0 site's times, a traced step's launches and export
+    (the module docstring). Returns the kernels line's entry."""
+    from vnet_tpu_torch.tools import bn_act_bench as bab
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sites = [((shape, groups, act), layers, train)
+             for cell, (_, _, _, train) in bab.CELLS.items()
+             for (shape, groups, act), layers in bab.bn_sites(cell)]
+    sites += [(site, 0, True) for site in bab.EDGE_SITES]
+    worst = {}
+    for (shape, groups, act), _, train in sites:
+        r = bab.check_site(shape, groups, act, gen, train)
+        for k, v in r.items():
+            if isinstance(v, float):
+                worst[k] = max(worst.get(k, 0.0), v)
+        torch.cuda.empty_cache()
+    say(f"[28] {len(sites)} sites held against the plain versions (apply "
+        f"bitwise, running averages bitwise); worst: {worst}")
+    level0 = ((32, 128, 128, 128, 16), 8, "prelu")
+    times = bab.site_ms(*level0, gen)
+    torch.cuda.empty_cache()
+    say(f"[28] level-0 packed site {level0}: {json.dumps(times)}")
+    steps = {}
+    for make, remat in (("flagship", True), ("flagship", False),
+                        ("attention", False)):
+        label = f"{make}{' remat' if remat else ''}"
+        try:
+            r = bab.check_step(make, remat)
+        except AssertionError as e:
+            check(False, f"{label} step: launches not once per site per "
+                         f"pass, or a kernel named like another: {e}")
+        say(f"[28] {label} step: batch-norm calls {r['calls']}, launches "
+            f"(moments, apply, sums, dx) {r['launches']}; trace "
+            f"{r['trace']}")
+        steps[label] = dict(sites=r["calls"]["forward"],
+                            recompute=r["calls"]["recompute"],
+                            launches=sum(r["launches"]))
+    err = bab.check_export(SEED)
+    say(f"[28] export_forward on cuda: no fused launch in the program, max "
+        f"|diff| against the module {err:.3e}")
+    say(f"[28] phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(ms=times["kernel_fwd_ms"] + times["kernel_bwd_ms"],
+                bound_ms=times["bound_fwd_ms"] + times["bound_bwd_ms"],
+                bound_by="bytes", plain_ms=times["eager_fwd_ms"]
+                + times["eager_bwd_ms"], times=times, steps=steps,
+                worst=worst)
 
 
 def phase_tools_trace():
@@ -3569,7 +3724,7 @@ def _eval2d_modes(stack, dtype):
             acc_s, w_s = stacked(stack)
             torch.cuda.synchronize()
         stacked_s = time.perf_counter() - t0
-        counts = read_counts()
+        counts = held_bn(read_counts(), "26")
         _check_held("26", blends, drops, counts)
         grid = build_patch_grid(STACK_2D[1:3], (256, 256), (128, 128))
         rows = STACK_2D[0] * len(grid)
@@ -3651,7 +3806,7 @@ def phase_tools(qs_workdir):
         acc_k, w_k = engine(vol)
         torch.cuda.synchronize()
     held_s = time.perf_counter() - t0
-    counts = read_counts()
+    counts = held_bn(read_counts(), "26")
     _check_held("26", blends, drops, counts)
     check(counts["blend_accumulate"] == 4 and not drops,
           f"launches {counts} at 512^3, expected 4 blends")
@@ -3742,7 +3897,7 @@ def phase_tools(qs_workdir):
                                    impl, "--suffix", impl, "--device",
                                    "cuda"])
             torch.cuda.synchronize()
-        counts = read_counts()
+        counts = held_bn(read_counts(), "26")
         for line in out.getvalue().splitlines():
             say(f"[26] (e) eval_only: {line}")
         _check_held("26", blends, drops, counts)
@@ -3820,7 +3975,7 @@ def phase_probes_ab(tmp):
                                   "--device", "cuda"])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = held_bn(read_counts(), "27")
     out = result["quickstart"]
     with open(os.path.join(wd, "config.json")) as f:
         cfg = json.load(f)
@@ -3868,7 +4023,7 @@ def phase_probes_ab(tmp):
     with _holding() as (held_blends, held_drops):
         code, lines = _lines_of(probe2d_r5b.main, probe_args, "probe2d_r5b")
         torch.cuda.synchronize()
-    r5b = read_counts()
+    r5b = held_bn(read_counts(), "27")
     check(code == 0 and _prefixes(lines, ["eval_apply (train=False): ",
                                           "train-mode (train=True) : "]),
           "probe2d_r5b")
@@ -3899,7 +4054,7 @@ def phase_probes_ab(tmp):
         code, lines = _lines_of(ab_train.main, [
             tag, "--log", log, "--reps", str(AB_REPS), "--device", "cuda",
             "--inproc"], "ab_train")
-        counts = read_counts()
+        counts = held_bn(read_counts(), "27")
         say(f"[27] (c) {tag}: {steps} steps in {time.perf_counter() - t0:.2f}"
             f" s; launches {counts}")
         rec = json.loads(lines[-1])
@@ -3975,6 +4130,7 @@ def run():
     blend, blend_2d = phase_kernel_vs_plain(card)
     rows, n_rows = phase_rows()
     blend_512 = phase_tools_trace()
+    bnact = phase_bn_act()
     phase_forward_card_vs_cpu()
     phase_packed_vs_direct()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_")
@@ -3986,7 +4142,7 @@ def run():
     dw = phase_dw()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_train_")
     try:
-        train_counts = phase_train(tmp)
+        train_counts, train_bn = phase_train(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_flagship()
@@ -4115,8 +4271,11 @@ def run():
                        "summed over phase 6's nine packed shapes", **dw),
         dict(name="bn_stats", route="cuda",
              source="vnet_tpu_torch/csrc/bn_stats.cu",
-             replaces="vnet_tpu/ops/pallas/fused.py:96", launches=n_stats,
-             launches_in=own.format("phase 9, batch_norm_train"), **stats),
+             replaces="vnet_tpu/ops/pallas/fused.py:96",
+             launches=n_stats + train_bn["bn_stats"],
+             launches_in="phase 7 (training: every batch norm's forward "
+                         "sums, ops/bn_act.py) and phase 9 "
+                         "(batch_norm_train)", **stats),
         dict(name="bn_grad_stats", route="cuda",
              source="vnet_tpu_torch/csrc/bn_stats.cu",
              replaces="vnet_tpu/ops/pallas/fused.py:152", launches=n_grad,
@@ -4129,7 +4288,20 @@ def run():
         dict(name="blend_accumulate_rows", route="cuda",
              source="vnet_tpu_torch/csrc/blend_rows.cu",
              replaces="vnet_tpu/ops/pallas/fused.py:332", launches=n_rows,
-             launches_in=own.format("phase 11, slice geometry"), **rows)]}))
+             launches_in=own.format("phase 11, slice geometry"), **rows),
+        dict(name="bn_act", route="cuda",
+             source="vnet_tpu_torch/csrc/bn_act.cu",
+             replaces="none: the JAX package leaves BatchNorm and the "
+                      "activation to XLA's fusion",
+             launches=sum(train_bn[k] for k in BN_ACT if k != "bn_stats"),
+             launches_in="every batch-kind norm of every network on the "
+                         "card; counted here: phase 7's training (wrapper "
+                         "calls of the apply, the gradient sums and dx; "
+                         "the forward's sums are bn_stats')",
+             times_are="event ms of the level-0 packed site (32, 128, "
+                       "128, 128, 16) bf16 PReLU, forward (moments, "
+                       "apply) plus backward (sums, dx); plain_ms: the "
+                       "eager chain it replaced", **bnact)]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

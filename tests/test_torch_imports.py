@@ -89,11 +89,13 @@ def test_port_modules_cover_the_package():
                    "experiments.diag2d.probe2d_r5b",
                    "experiments.diag2d.probe2d_r5c", "experiments.ab_train",
                    "experiments.capture_trace",
-                   "tools.select_bench_tuning"):
+                   "tools.select_bench_tuning", "ops.bn_act",
+                   "tools.bn_act_bench"):
         assert f"vnet_tpu_torch.{module}" in PORT_MODULES, module
     assert {os.path.basename(p) for p in CUDA_TESTS} == {
         f"test_torch_cuda_{k}.py" for k in ("blend", "fused", "dropout",
-                                            "batchnorm", "dw_conv")}
+                                            "batchnorm", "dw_conv",
+                                            "bn_act")}
 
 
 @pytest.mark.parametrize("relpath", CUDA_TESTS)

@@ -87,12 +87,9 @@ class ResidualAttentionBlock(nn.Module):
 
     def forward(self, x):
         shortcut = self.shortcut_conv(x)
-        y = self.dropout_1(self.act_1(self.norm_1(self.conv_1(x))))
+        y = self.dropout_1(self.norm_1(self.conv_1(x), act=self.act_1))
         y = self.norm_2(self.conv_2(y))
-        out = self.norm_out(y + shortcut)
-        if self.act_out is not None:
-            out = self.act_out(out)
-        return self.dropout_2(out)
+        return self.dropout_2(self.norm_out(y + shortcut, act=self.act_out))
 
 
 class AttentionModule(nn.Module):

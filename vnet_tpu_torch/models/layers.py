@@ -21,10 +21,14 @@ the biased one (``F.batch_norm`` and ``nn.BatchNorm3d`` would update it with
 the unbiased one and drift from flax). Parameters stay float32 and are cast
 to the compute dtype (``x.dtype``) at use, as the JAX modules do.
 
-Training mode: batch norms update their running averages in place under
-``no_grad``; ``Dropout`` runs ``ops/dropout.py`` (the CUDA kernel on the
-card) and a 3D ``SpatialConv(dw_impl="pallas")`` takes its weight gradient
-from ``ops/dw_conv.py``.
+Batch norms run with the activation that follows them as one autograd
+Function (``ops/bn_act.py``: hand-written CUDA kernels for CUDA tensors,
+their plain versions for any other; under ``torch.export`` the plain
+operators of :meth:`BatchNorm.eager`); callers hand the activation to the
+norm (``norm(x, groups, act=act)``). Training mode: batch norms update
+their running averages in place; ``Dropout`` runs ``ops/dropout.py`` (the
+CUDA kernel on the card) and a 3D ``SpatialConv(dw_impl="pallas")`` takes
+its weight gradient from ``ops/dw_conv.py``.
 
 Data parallelism (``parallel/mesh.py``): inside ``data_parallel(mesh)``,
 which the training and evaluation steps set, every batch norm that
@@ -85,6 +89,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.bn_act import (CLIPPED, MOMENTS, RUNNING, activation_plain,
+                          batch_norm_act, moment_sums_plain, normalize_plain)
+from ..ops.bn_act import update_running as _update_running
 from ..ops.conv_vjp import conv_custom_dw
 from ..ops.conv_vjp import same_pads as stride1_pads
 from ..ops.dropout import dropout as dropout_op
@@ -92,8 +99,7 @@ from ..ops.dw_conv import conv3d_dw
 from ..ops.s2d import (conv_padded, norm_factors, packed_conv,
                        packed_down_conv, prod_factors, s2d_conv,
                        s2d_down_conv, s2d_up_conv)
-from ..parallel.mesh import (active_mesh, all_reduce_mean,
-                             group_all_reduce_mean, mesh_scope)
+from ..parallel.mesh import active_mesh, group_all_reduce_mean, mesh_scope
 from ..parallel.spatial import (current_partition, halo_exchange_asym,
                                 partition_scope)
 from ..profiler import span
@@ -102,7 +108,6 @@ NORM_KINDS = ("batch", "batch_stats", "group", "instance", "none")
 ACTIVATIONS = ("relu", "prelu", "lrelu")
 
 _EPS = 1e-3
-_MOMENTUM = 0.99
 DW_IMPLS = ("xla", "custom", "pallas")
 CONV_IMPLS = ("direct", "s2d", "auto")
 _CONV = {2: F.conv2d, 3: F.conv3d}  # by spatial rank
@@ -208,21 +213,33 @@ def _partition_mean(t: torch.Tensor) -> torch.Tensor:
     return group_all_reduce_mean(t, part.group, part.size)
 
 
+def moments_group():
+    """``(process group, size)`` over which batch statistics average: every
+    rank of the active mesh (``None``: the default group), else the active
+    spatial partition; ``None`` where they are the rank's own."""
+    mesh = active_mesh()
+    if mesh is not None:
+        return (None, mesh.world_size) if mesh.parallel else None
+    part = current_partition()
+    if part is None or part.size <= 1:
+        return None
+    return part.group, part.size
+
+
 def batch_moments(xf: torch.Tensor, axes=None):
     """``(E[x], E[x^2])`` of float32 ``xf`` over ``axes`` (every axis for
-    ``None``), averaged over every rank of the active mesh, or else over
-    the active spatial partition (equal shards: the global moments)."""
+    ``None``), averaged over :func:`moments_group` (equal shards: the
+    global moments), differentiably."""
     if axes is None:
         mean, sq = xf.mean(), xf.square().mean()
     else:
         mean, sq = xf.mean(axes), xf.square().mean(axes)
-    mesh = active_mesh()
-    both = torch.stack([mean, sq])
-    if mesh is not None:
-        both = all_reduce_mean(both, mesh)
-    else:
-        both = _partition_mean(both)
-    return both.unbind(0)
+    return _mean_over_group(torch.stack([mean, sq])).unbind(0)
+
+
+def _mean_over_group(t: torch.Tensor) -> torch.Tensor:
+    group = moments_group()
+    return t if group is None else group_all_reduce_mean(t, *group)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple:
@@ -243,11 +260,7 @@ class PReLU(nn.Module):
         self.weight = nn.Parameter(torch.full((features,), 0.1))
 
     def forward(self, x, groups: int = 1):
-        alpha = self.weight.to(x.dtype)
-        if groups > 1:
-            alpha = alpha.repeat(groups)
-        alpha = _channel_view(alpha, x.ndim)
-        return torch.clamp_min(x, 0) + alpha * torch.clamp_max(x, 0)
+        return activation_plain(x, "prelu", self.weight, groups)
 
 
 class Activation(nn.Module):
@@ -261,12 +274,13 @@ class Activation(nn.Module):
         if kind == "prelu":
             self.prelu = PReLU(features)
 
+    @property
+    def alpha(self) -> Optional[torch.Tensor]:
+        """PReLU's slope, ``None`` for the other kinds."""
+        return self.prelu.weight if self.kind == "prelu" else None
+
     def forward(self, x, groups: int = 1):
-        if self.kind == "relu":
-            return F.relu(x)
-        if self.kind == "lrelu":
-            return F.leaky_relu(x, 0.01)  # flax nn.leaky_relu default
-        return self.prelu(x, groups)
+        return activation_plain(x, self.kind, self.alpha, groups)
 
 
 class BatchNorm(nn.Module):
@@ -282,6 +296,13 @@ class BatchNorm(nn.Module):
     spatial and offset groups, which equals the unpacked per-channel
     statistics; the variance is ``E[x^2] - E[x]^2`` unclipped, as there.
     Parameters and buffers stay ``(C,)``.
+
+    ``act``: the :class:`Activation` that follows, computed in the same
+    passes. The forward is ``ops/bn_act.py``'s autograd Function (the CUDA
+    kernels for a CUDA tensor, their plain versions for any other); under
+    ``torch.export`` it is :meth:`eager`, the chain of plain operators that
+    autograd differentiates, which the Function equals given the same
+    statistics.
     """
 
     def __init__(self, features: int):
@@ -291,46 +312,37 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x, use_running_average: bool, groups: int = 1):
-        if groups > 1:
-            return self._packed(x, use_running_average, groups)
-        xf = x.float()
-        if use_running_average:
-            mean, var = self.running_mean, self.running_var
-        else:
-            mean, sq = batch_moments(xf, (0,) + tuple(range(2, x.ndim)))
-            var = torch.clamp_min(sq - mean.square(), 0.0)
-            if self.training and not recomputing():
-                self.update_running(mean, var)
-        mul = torch.rsqrt(var + _EPS) * self.weight
-        y = ((xf - _channel_view(mean, x.ndim)) * _channel_view(mul, x.ndim)
-             + _channel_view(self.bias, x.ndim))
-        return y.to(x.dtype)
+    def forward(self, x, use_running_average: bool, groups: int = 1,
+                act: Optional["Activation"] = None):
+        if torch.compiler.is_compiling():  # the kernels take no fake tensors
+            y = self.eager(x, use_running_average, groups)
+            return y if act is None else act(y, groups)
+        batch = not use_running_average
+        return batch_norm_act(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            act="none" if act is None else act.kind,
+            alpha=None if act is None else act.alpha, groups=groups,
+            batch=batch, update=batch and self.training and not recomputing(),
+            group=moments_group() if batch else None)
 
-    def _packed(self, x, use_running_average: bool, groups: int):
-        c = x.shape[1] // groups
-        # (B, G, C, *spatial): a view of the channels-last storage
-        xf = x.reshape((x.shape[0], groups, c) + tuple(x.shape[2:])).float()
+    def eager(self, x, use_running_average: bool, groups: int = 1):
+        """The norm as plain operators, differentiated by autograd."""
         if use_running_average:
-            mean, var = self.running_mean, self.running_var
+            first, second = self.running_mean, self.running_var
+            kind = RUNNING
         else:
-            mean, sq = batch_moments(xf, (0, 1) + tuple(range(3, xf.ndim)))
-            var = sq - mean.square()
-            if self.training and not recomputing():
-                self.update_running(mean, var)
-        view = (1, 1, c) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(var + _EPS) * self.weight
-        y = (xf - mean.view(view)) * mul.view(view) + self.bias.view(view)
-        return y.to(x.dtype).reshape(x.shape)
+            first, second = _mean_over_group(moment_sums_plain(x)).unbind(0)
+            kind = CLIPPED if groups == 1 else MOMENTS
+        y, mean, var = normalize_plain(x, first, second, kind, self.weight,
+                                       self.bias, groups)
+        if kind != RUNNING and self.training and not recomputing():
+            self.update_running(mean, var)
+        return y
 
-    @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """``running = 0.99 * running + 0.01 * batch`` (flax's update, the
         biased batch variance)."""
-        self.running_mean.copy_(_MOMENTUM * self.running_mean
-                                + (1.0 - _MOMENTUM) * mean)
-        self.running_var.copy_(_MOMENTUM * self.running_var
-                               + (1.0 - _MOMENTUM) * var)
+        _update_running(self.running_mean, self.running_var, mean, var)
 
 
 class GroupNorm(nn.Module):
@@ -387,15 +399,22 @@ class Norm(nn.Module):
             self.weight = nn.Parameter(torch.ones(features))
             self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x, groups: int = 1):
-        if self.kind == "none":
-            return x
-        if groups > 1 and self.kind not in ("batch", "batch_stats"):
-            raise ValueError(f"packed norm only supports batch kinds, got "
-                             f"{self.kind}")
+    def forward(self, x, groups: int = 1,
+                act: Optional["Activation"] = None):
+        """The norm of ``x``, then ``act`` (an :class:`Activation`) if
+        given; a batch kind computes both in one pass of ``ops/bn_act.py``."""
         if self.kind in ("batch", "batch_stats"):
             return self.bn(x, self.kind == "batch" and not self.training,
-                           groups)
+                           groups, act)
+        y = self._other(x, groups)
+        return y if act is None else act(y, groups)
+
+    def _other(self, x, groups: int):
+        if self.kind == "none":
+            return x
+        if groups > 1:
+            raise ValueError(f"packed norm only supports batch kinds, got "
+                             f"{self.kind}")
         if self.kind == "group":
             return self.gn(x)
         xf = x.float()
@@ -736,13 +755,13 @@ class DownConv(nn.Module):
         if packed_output and not packed_input:
             raise ValueError("packed_output needs packed_input")
         if not packed_input:
-            return self.act(self.norm(self.conv(x)))
+            return self.norm(self.conv(x), act=self.act)
         if self.factor != 2:
             raise ValueError("a packed input needs factor 2")
         x = self.conv(x, packed_down=True, packed_down_keep=packed_output,
                       packed_factors=packed_factors)
         groups = 2 ** (x.ndim - 2) if packed_output else 1
-        return self.act(self.norm(x, groups), groups)
+        return self.norm(x, groups, act=self.act)
 
 
 class UpConv(nn.Module):
@@ -770,10 +789,10 @@ class UpConv(nn.Module):
 
     def forward(self, x, packed_output: bool = False, packed_factors=None):
         if not packed_output:
-            return self.act(self.norm(self.deconv(x)))
+            return self.norm(self.deconv(x), act=self.act)
         if self.factor != 2:
             raise ValueError("a packed output needs factor 2")
         rank = x.ndim - 2
         groups = prod_factors(norm_factors(packed_factors, rank))
         x = self.deconv(x, packed_output=True, packed_factors=packed_factors)
-        return self.act(self.norm(x, groups), groups)
+        return self.norm(x, groups, act=self.act)

@@ -53,8 +53,10 @@ class UNetConvBlock(nn.Module):
 
     def forward(self, x):
         for i in range(self.num_convolutions):
-            for part in ("conv", "norm", "act", "dropout"):
-                x = getattr(self, f"{part}_{i + 1}")(x)
+            n = i + 1
+            x = getattr(self, f"conv_{n}")(x)
+            x = getattr(self, f"norm_{n}")(x, act=getattr(self, f"act_{n}"))
+            x = getattr(self, f"dropout_{n}")(x)
         return x
 
 

@@ -147,8 +147,8 @@ class ConvBlock(nn.Module):
             x = pre(x, groups)
         if i == self.num_convolutions - 1:
             x = x + residual
-        x = getattr(self, f"norm_{i + 1}")(x, groups)
-        x = getattr(self, f"act_{i + 1}")(x, groups)
+        x = getattr(self, f"norm_{i + 1}")(x, groups,
+                                           act=getattr(self, f"act_{i + 1}"))
         return getattr(self, f"dropout_{i + 1}")(x)
 
     def forward(self, x, packed_factors=None, pack_input: bool = True,
@@ -344,7 +344,7 @@ class VNet(nn.Module):
             x = self.input_norm(x.expand(-1, self.num_channels,
                                          *(-1,) * rank))
         else:
-            x = self.input_act(self.input_norm(self.input_conv(x)))
+            x = self.input_norm(self.input_conv(x), act=self.input_act)
         x = x.contiguous(memory_format=_MEMORY_FORMAT[rank])
 
         # GSPMD (the trainer's partition) plans the unsharded program,

@@ -95,12 +95,13 @@ def _lib():
 
 def _reduce(fn, wrapper, inputs, stats, name):
     """Launch one of ``bn_stats.cu``'s entry points over ``inputs``
-    (``(rows, C)`` tensors of one dtype) and ``stats`` (float32 vectors)."""
+    (``(rows, C)`` tensors of one dtype) and ``stats`` (float32 vectors);
+    ``(2, C)`` float32."""
     x2 = inputs[-1]
     rows, c = x2.shape
     out = torch.empty((2, c), dtype=torch.float32, device=x2.device)
     if rows == 0:
-        return out.zero_().unbind(0)
+        return out.zero_()
     vec = int((c * x2.element_size()) % 16 == 0 and _aligned(*inputs))
     chunks, chunk_rows = split_rows(rows, c, vec, x2.element_size())
     partial = torch.empty(chunks * 2 * c, dtype=torch.float32,
@@ -113,7 +114,16 @@ def _reduce(fn, wrapper, inputs, stats, name):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     wrapper.launches += 1
-    return out.unbind(0)
+    return out
+
+
+def bn_sums(x: torch.Tensor) -> torch.Tensor:
+    """:func:`bn_stats` as one ``(2, C)`` float32 tensor (no copy on the
+    card); counted in ``bn_stats.launches``."""
+    x2 = _rows(x, "bn_stats")
+    if _device(x) == "cpu":
+        return torch.stack(bn_stats_plain(x2))
+    return _reduce(_lib().vnet_bn_stats, bn_stats, (x2,), (), "bn_stats")
 
 
 def bn_stats(x: torch.Tensor, *, tile_rows: int = 0,
@@ -122,10 +132,7 @@ def bn_stats(x: torch.Tensor, *, tile_rows: int = 0,
     leading dims, each ``(C,)`` float32. CUDA tensors launch
     ``csrc/bn_stats.cu``; CPU tensors take :func:`bn_stats_plain`."""
     del tile_rows, interpret  # Mosaic tiling hints
-    x2 = _rows(x, "bn_stats")
-    if _device(x) == "cpu":
-        return bn_stats_plain(x2)
-    return _reduce(_lib().vnet_bn_stats, bn_stats, (x2,), (), "bn_stats")
+    return tuple(bn_sums(x).unbind(0))
 
 
 bn_stats.launches = 0
@@ -156,8 +163,8 @@ def bn_grad_stats(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     if _device(x) == "cpu":
         return bn_grad_stats_plain(dy2, x2, mean, invstd)
     stats = (mean.float().contiguous(), invstd.float().contiguous())
-    return _reduce(_lib().vnet_bn_grad_stats, bn_grad_stats, (dy2, x2),
-                   stats, "bn_grad_stats")
+    return tuple(_reduce(_lib().vnet_bn_grad_stats, bn_grad_stats,
+                         (dy2, x2), stats, "bn_grad_stats").unbind(0))
 
 
 bn_grad_stats.launches = 0

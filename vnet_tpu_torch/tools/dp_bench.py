@@ -12,10 +12,13 @@ global batches:
 * (a) one float32 step (TF32 off) of the full-width packed flagship network
   (``profile_step.flagship_step``) at global batch ``CHECK_BATCH``, 64^3,
   ``pallas`` dropout 0.01 through the kernel and the dW kernel. The ranks'
-  loss, gradients and running averages must agree with the one process's
-  within ``RTOL`` of the largest entry of their kind; the parameters after
-  Adam within ``RTOL`` beyond Adam's first-step amplification of the two
-  runs' gradient difference (:func:`compare_train`); the ranks' parameters
+  loss and running averages must agree with the one process's within
+  ``RTOL`` of the largest entry of their kind; the gradients of each, the
+  ranks' and the one process's, within ``F64_RTOL`` of the largest of the
+  same step in float64 on the host's CPU (:func:`exact_check`); the
+  parameters after Adam within ``RTOL`` beyond Adam's first-step
+  amplification of the two runs' gradient difference
+  (:func:`compare_train`); the ranks' parameters
   and averages bitwise equal to each other; every dropout layer's mask,
   joined over the ranks, bitwise the one process's; 42 dropout and 21 dW
   launches a rank.
@@ -62,6 +65,13 @@ DROPOUT_SEED = 20261017
 # gradients in shares); allowed max |diff| relative to the largest entry of
 # its kind
 RTOL = 1e-4
+# (a)'s gradients against the float64 step, relative to its largest: each
+# float32 run of this step reads 1.5e-4 to 3.9e-4 on the card (PERF.md),
+# in the weight gradients of the convolutions ahead of batch norm, whose
+# sums cancel; two float32 runs differ by as much, from each other's side
+# of the float64 step, so the ranks are held to it rather than to the one
+# process. Batch statistics left unsynchronised over the ranks read 3.7e-2
+F64_RTOL = 1e-3
 # Adam's first update is exactly lr * g / (|g| + eps), about lr * sign(g):
 # a gradient near 0 (a conv bias ahead of a batch norm, whose gradient is
 # rounding, or a weight's that happens to be small) moves its parameter by
@@ -128,6 +138,38 @@ def train_check(mesh=None, device="cuda", batch=CHECK_BATCH, patch=PATCH):
                 state={k: v.detach().cpu()
                        for k, v in state.network.state_dict().items()},
                 masks=masks, launches=launches)
+
+
+def exact_check(batch=CHECK_BATCH, patch=PATCH):
+    """(a)'s one-process step in float64 on the host's CPU: the weights
+    made in float32 as (a)'s and widened, the same inputs and dropout
+    masks (the plain version), autograd's weight gradients. The yardstick
+    of the float32 runs' rounding."""
+    state, step, images, labels = flagship_step(
+        "pallas", batch, device="cpu", seed=SEED, dtype=torch.float32,
+        compute_metrics=True, patch=patch, dw_impl="xla")
+    state.network.double()
+    masks, handles = dropout_masks(state.network)
+    out = step(state, images.double(), labels, dropout_seed=DROPOUT_SEED)
+    for h in handles:
+        h.remove()
+    return dict(loss=float(out.loss),
+                grads={k: p.grad.detach()
+                       for k, p in state.network.named_parameters()},
+                state={k: v.detach()
+                       for k, v in state.network.state_dict().items()},
+                masks=masks)
+
+
+def worst_gradient(ref, got) -> str:
+    """The parameter whose gradient differs most, and its max |diff| over
+    its own largest entry."""
+    diffs = {k: (got["grads"][k] - v).abs().max().item()
+             for k, v in ref["grads"].items()}
+    k = max(diffs, key=diffs.get)
+    return (f"{k} {list(ref['grads'][k].shape)}, "
+            f"{diffs[k] / ref['grads'][k].abs().max().item():.2e} of its "
+            f"largest")
 
 
 def step_timing(mesh=None, device="cuda", batch=BATCH,
@@ -227,9 +269,13 @@ def compare_masks(ref_masks, rank_masks):
     return len(ref_masks), compared, mismatched
 
 
-def report_train(ref, ranks, tag: str) -> list:
-    """Print (a)'s comparison; return the failed checks."""
+def report_train(ref, exact, ranks, tag: str) -> list:
+    """Print (a)'s comparison with the one process ``ref`` and, for the
+    gradients, of both with the float64 step ``exact``; return the failed
+    checks."""
     errs, amplified, amp_err = compare_train(ref, ranks[0]["train"])
+    e_ref = compare_train(exact, ref)[0]["gradients"]
+    e_ranks = compare_train(exact, ranks[0]["train"])[0]["gradients"]
     layers, compared, mismatched = compare_masks(
         ref["masks"], [r["train"]["masks"] for r in ranks])
     per_rank = [r["train"]["launches"] for r in ranks]
@@ -238,8 +284,12 @@ def report_train(ref, ranks, tag: str) -> list:
           f"process: loss {ranks[0]['train']['loss']:.6f} vs "
           f"{ref['loss']:.6f}; max|diff| / max "
           f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (tolerance "
-          f"{RTOL:g}; parameters beyond Adam's amplification of the "
-          f"gradients' difference); {amplified} parameter entries where "
+          f"{RTOL:g} but for the gradients; parameters beyond Adam's "
+          f"amplification of the gradients' difference), largest gradient "
+          f"gap {worst_gradient(ref, ranks[0]['train'])}; gradients vs the "
+          f"float64 step: one process {e_ref:.2e} "
+          f"({worst_gradient(exact, ref)}), the ranks {e_ranks:.2e} "
+          f"(tolerance {F64_RTOL:g}); {amplified} parameter entries where "
           f"that amplification exceeds the tolerance (gradients near 0), "
           f"max |diff| {amp_err:.2e} (at most 2 lr = {2 * LR:g}); ranks' "
           f"parameters and running averages bitwise equal "
@@ -250,7 +300,10 @@ def report_train(ref, ranks, tag: str) -> list:
     expect = {"dropout": 2 * DROPOUT_LAYERS, "dw_conv": DW_LAUNCHES}
     checks = {
         f"ranks differ from one process: {errs}":
-            max(errs.values()) <= RTOL,
+            max(v for k, v in errs.items() if k != "gradients") <= RTOL,
+        f"gradients from the float64 step: one process {e_ref}, the ranks "
+        f"{e_ranks}":
+            max(e_ref, e_ranks) <= F64_RTOL,
         f"near-zero-gradient entries off by {amp_err}":
             amp_err <= 2 * LR * (1 + 1e-3),
         "the ranks' parameters differ":
@@ -332,6 +385,7 @@ def main(argv=None):
     print(f"cards: {smi}", flush=True)
     ref = train_check()
     torch.cuda.empty_cache()
+    exact = exact_check()
     one = step_timing()
     torch.cuda.empty_cache()
     share = step_timing(batch=BATCH // ranks, profile=True)
@@ -342,7 +396,7 @@ def main(argv=None):
                args=(tmp, args.device))
         results = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                               weights_only=False) for r in range(ranks)]
-    failed = (report_train(ref, results, "[a]")
+    failed = (report_train(ref, exact, results, "[a]")
               + report_timing(results, "[b]", one, share))
     if args.out:
         with open(args.out, "w") as f:
