@@ -12,9 +12,9 @@ autograd differentiates a call's output, dx only where the input needs a
 gradient); the other counts are then held as each phase says:
 
 1. device and build: card name, ``nvidia-smi`` name and power limit,
-   whether PyYAML and tensorboardX import; the seven kernel sources (blend,
+   whether PyYAML and tensorboardX import; the eight kernel sources (blend,
    dropout, dW, BN statistics, fused tail, row blend, batch norm +
-   activation) built from source in parallel, one ``nvcc`` each, with
+   activation, window attention) built from source in parallel, one ``nvcc`` each, with
    their build times and ptxas registers and spills; the tensor-core
    instructions in the SASS of the dW library's bf16 kernels
    (``cuobjdump --dump-sass``); the dropout kernels' SASS: no
@@ -357,6 +357,15 @@ gradient); the other counts are then held as each phase says:
    convolution, matrix product, optimizer or copy kernel; ``export_forward``
    of a small V-Net on ``cuda`` launches none of them and agrees with the
    module's eval forward, which does;
+29. (run right after phase 28) the shifted-window attention kernels
+   (``csrc/window_attention.cu``, ``ops/window_attention.py``): forward and
+   backward against the plain version in bf16 at stage 1 of a batch of 2
+   96^3 patches (343 windows of 343 tokens, 3 heads, shifted and not) and
+   at stage 4's 216-token window (``tools/wattn_bench.py``'s tolerances),
+   no ``(BW, heads, N, N)`` tensor saved, one launch of each entry point a
+   call; each stage's call at the Swin cell's batch 8 timed beside its
+   bound and the plain version; a SwinUNETR step at 96^3 with ``Remat``:
+   16 forward, 8 backward and 8 bias-gradient launches;
 17. (run last) ``python -m vnet_tpu_torch.tools.dropout_bench`` in a
    process of its own: the dropout kernel at every dropout shape of the
    flagship (``pallas``, ``bits8``, ``xla``), attention and 2D (``xla``)
@@ -403,7 +412,7 @@ TRAIN_CONFIG = os.path.join(ROOT, "configs", "config.json")
 ATTENTION_CONFIG = os.path.join(ROOT, "configs",
                                 "config_attention_multimodal.json")
 KERNELS = ("blend_accumulate", "dropout", "dw_conv", "bn_stats",
-           "bias_prelu_residual", "blend_rows", "bn_act")
+           "bias_prelu_residual", "blend_rows", "bn_act", "window_attention")
 SLICE_VOLUME = (384, 384, 64)
 SLICE_PATCH = (256, 256, 32)
 SLICE_STRIDE = (128, 128, 16)
@@ -3628,6 +3637,51 @@ def phase_bn_act():
                 worst=worst)
 
 
+def phase_window_attention():
+    """Phase 29: the shifted-window attention kernels against their plain
+    version at Swin UNETR's shapes and timed at the benchmark cell's
+    (``tools/wattn_bench.py``), and a SwinUNETR training step's launches
+    (the module docstring). Returns the kernels line's entry."""
+    from vnet_tpu_torch.models import build_network
+    from vnet_tpu_torch.ops import window_attention as wa
+    from vnet_tpu_torch.tools import wattn_bench as wb
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, case in wb.CHECKS.items():
+        try:
+            r = wb.check_call(case, gen)
+        except AssertionError as e:
+            check(False, f"window attention {name}: {e}")
+        say(f"[29] {name}: {json.dumps(r)}")
+        torch.cuda.empty_cache()
+    timed = {}
+    for name, case in wb.TIMED.items():
+        timed[name] = wb.time_call(case, gen)
+        say(f"[29] {name} timed: {json.dumps(timed[name])}")
+        torch.cuda.empty_cache()
+    counters = (wa.window_attention_fwd, wa.window_attention_bwd,
+                wa.window_attention_dbias)
+    before = [f.launches for f in counters]
+    net = build_network("SwinUNETR", num_classes=14, num_channels=48,
+                        dropout_rate=0.0, dtype=torch.bfloat16,
+                        device="cuda", remat=True).train()
+    x = torch.randn(1, 96, 96, 96, 1, device="cuda", generator=gen)
+    net(x).float().square().mean().backward()
+    torch.cuda.synchronize()
+    step = [f.launches - b for f, b in zip(counters, before)]
+    check(step == [16, 8, 8], f"a SwinUNETR step with Remat launched "
+                              f"(fwd, bwd, dbias) {step}, not [16, 8, 8]")
+    say(f"[29] SwinUNETR 96^3 step with Remat: launches (fwd, bwd, dbias) "
+        f"{step}")
+    say(f"[29] phase: {time.perf_counter() - t_phase:.1f} s")
+    s1 = timed["stage1_b8"]
+    return dict(ms=s1["step_ms"], bound_ms=s1["step_bound_ms"],
+                bound_by="bytes", plain_ms=s1["plain_step_ms"],
+                launches=sum(step) + 3 * len(wb.CHECKS), step=step,
+                timed=timed)
+
+
 def phase_tools_trace():
     """Phase 26 (c) and the blend at (a)'s geometry, with the process's
     other traces before its first CLI run: the blend kernel at
@@ -4131,6 +4185,7 @@ def run():
     rows, n_rows = phase_rows()
     blend_512 = phase_tools_trace()
     bnact = phase_bn_act()
+    wattn = phase_window_attention()
     phase_forward_card_vs_cpu()
     phase_packed_vs_direct()
     tmp = tempfile.mkdtemp(prefix="vnet_smoke_")
@@ -4301,7 +4356,18 @@ def run():
              times_are="event ms of the level-0 packed site (32, 128, "
                        "128, 128, 16) bf16 PReLU, forward (moments, "
                        "apply) plus backward (sums, dx); plain_ms: the "
-                       "eager chain it replaced", **bnact)]}))
+                       "eager chain it replaced", **bnact),
+        dict(name="window_attention", route="cuda",
+             source="vnet_tpu_torch/csrc/window_attention.cu",
+             replaces="none: the JAX package has no transformer",
+             launches_in="phase 29 (calls of the forward, backward and "
+                         "bias-gradient entry points: the checked shapes "
+                         "and a SwinUNETR step)",
+             times_are="event ms of one forward and backward call at "
+                       "stage 1 of the Swin cell (batch 8, 2744 windows "
+                       "of 343 tokens, 3 heads, shifted); plain_ms: the "
+                       "plain version in bf16, scores in device memory",
+             **wattn)]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -90,12 +90,13 @@ def test_port_modules_cover_the_package():
                    "experiments.diag2d.probe2d_r5c", "experiments.ab_train",
                    "experiments.capture_trace",
                    "tools.select_bench_tuning", "ops.bn_act",
-                   "tools.bn_act_bench"):
+                   "tools.bn_act_bench", "models.swin_unetr",
+                   "ops.window_attention", "tools.wattn_bench"):
         assert f"vnet_tpu_torch.{module}" in PORT_MODULES, module
     assert {os.path.basename(p) for p in CUDA_TESTS} == {
         f"test_torch_cuda_{k}.py" for k in ("blend", "fused", "dropout",
                                             "batchnorm", "dw_conv",
-                                            "bn_act")}
+                                            "bn_act", "window_attention")}
 
 
 @pytest.mark.parametrize("relpath", CUDA_TESTS)

@@ -146,7 +146,7 @@ def test_checkpoints_round_trip(name, spatial, rng):
 
 def test_build_network_names_and_warnings():
     assert set(NETWORKS) == {"VNet", "VNetLegacy", "UNet", "Dense",
-                             "AttentionVNet"}
+                             "AttentionVNet", "SwinUNETR"}
     with pytest.raises(NotImplementedError):
         build_network("FCN", num_classes=2, device="cpu")
     with pytest.raises(NotImplementedError):

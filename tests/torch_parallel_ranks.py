@@ -1,4 +1,5 @@
-"""Rank functions of ``tests/test_torch_parallel.py``: each runs on every
+"""Rank functions of ``tests/test_torch_parallel.py`` (and
+``swin_step``, of ``tests/test_torch_swin_parallel.py``): each runs on every
 rank of a ``gloo`` group on the CPU (``parallel.launch``) and writes its
 results to ``<workdir>/rank<r>.pt``.
 
@@ -87,6 +88,16 @@ def trainer_step(config_path, state_dict, images, labels, seed,
                            for k, v in state.network.state_dict().items()},
             "grads": {k: p.grad.detach().clone()
                       for k, p in state.network.named_parameters()}}
+
+
+def swin_step(workdir):
+    """One ``Trainer.train_step`` of the small ``SwinUNETR`` in
+    ``<workdir>/inputs.pt`` on this rank's rows."""
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    out = trainer_step(inp["config"], inp["state_dict"], inp["images"],
+                       inp["labels"], 0)
+    rank = torch.distributed.get_rank()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
 
 
 def window_run(net_kw, state_dict, volume, patch, stride, batch, classes,

@@ -3,7 +3,9 @@
 The names of the JAX zoo: ``VNet`` and ``VNetLegacy`` (its
 ``legacy_double_norm`` topology), ``UNet`` and ``Dense`` (2D or 3D), and
 the attention-gated ``AttentionVNet`` (3D; a 2D one raises
-``NotImplementedError``, see ROADMAP.md). ``FCN`` raises as in JAX.
+``NotImplementedError``, see ROADMAP.md). ``FCN`` raises as in JAX. The
+port's own ``SwinUNETR`` (3D; MONAI's, ``swin_unetr.py``) has no JAX
+counterpart.
 """
 
 from __future__ import annotations
@@ -17,10 +19,12 @@ from ..device import resolve_device
 from .attention import (AttentionGatedVNet, AttentionModule, OutputModule,
                         attention_distance_loss)
 from .dense import Dense
+from .swin_unetr import DEPTHS, SwinUNETR
 from .unet import UNet
 from .vnet import VNet
 
-NETWORKS = ("VNet", "VNetLegacy", "UNet", "Dense", "AttentionVNet")
+NETWORKS = ("VNet", "VNetLegacy", "UNet", "Dense", "AttentionVNet",
+            "SwinUNETR")
 
 
 def eval_apply(network: torch.nn.Module, x: torch.Tensor):
@@ -60,15 +64,36 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
     output layer has one unit per voxel and class). ``remat`` recomputes
     the conv blocks of ``VNet`` and ``VNetLegacy`` and, of
     ``AttentionVNet``, also both heads in the backward pass; UNet and Dense
-    warn and ignore it, with ``DropoutImpl`` and ``DwImpl``, as in JAX."""
+    warn and ignore it, with ``DropoutImpl`` and ``DwImpl``, as in JAX.
+
+    ``SwinUNETR`` (3D) takes ``num_channels`` as MONAI's ``feature_size``
+    (its depths, heads, window and patch are MONAI's defaults,
+    ``swin_unetr.DEPTHS``, ...), ``num_levels`` as its number of stages (4)
+    and ``remat`` as ``use_checkpoint`` (each Swin block recomputed); its norms
+    are MONAI's (LayerNorm, instance norm) whatever ``norm`` says, and it
+    warns and ignores dropout, ``DropoutImpl`` and ``DwImpl``."""
     device = resolve_device(device)
     if name == "FCN":
         raise NotImplementedError("Network to be developed")
     if name not in NETWORKS:
         raise ValueError(f"Invalid network: {name!r}")
-    if name == "AttentionVNet" and spatial_rank != 3:
+    if name in ("AttentionVNet", "SwinUNETR") and spatial_rank != 3:
         raise NotImplementedError(
-            "a 2D AttentionVNet is not ported to PyTorch yet (ROADMAP.md)")
+            f"a 2D {name} is not ported to PyTorch yet (ROADMAP.md)")
+    if name == "SwinUNETR":
+        unsupported = [k for k, on in (("Dropout", dropout_rate > 0.0),
+                                       ("DropoutImpl", dropout_impl != "xla"),
+                                       ("DwImpl", dw_impl != "xla")) if on]
+        if unsupported:
+            warnings.warn(f"SwinUNETR does not implement "
+                          f"{', '.join(unsupported)}; ignoring", stacklevel=2)
+        if num_levels != len(DEPTHS):
+            raise ValueError(f"NumLevels {num_levels} is not SwinUNETR's "
+                             f"{len(DEPTHS)} stages")
+        net = SwinUNETR(num_classes=num_classes, in_channels=in_channels,
+                        feature_size=num_channels, dtype=dtype, remat=remat,
+                        generator=generator)
+        return net.to(device)
     if name in ("UNet", "Dense"):
         # plain dropout and convolutions: a VNet-only knob must not
         # silently no-op (vnet_tpu/models/__init__.py:507-516)
@@ -118,5 +143,5 @@ def build_network(name: str, *, num_classes: int, in_channels: int = 1,
 
 
 __all__ = ["VNet", "UNet", "Dense", "AttentionGatedVNet", "AttentionModule",
-           "OutputModule", "NETWORKS", "attention_distance_loss",
+           "OutputModule", "SwinUNETR", "NETWORKS", "attention_distance_loss",
            "build_network", "eval_apply"]

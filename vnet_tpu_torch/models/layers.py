@@ -197,6 +197,15 @@ def _channel_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
     return v.view((1, -1) + (1,) * (ndim - 2))
 
 
+def _plus_bias(y: torch.Tensor, b: Optional[torch.Tensor],
+               groups: int = 1) -> torch.Tensor:
+    """``y`` plus the per-channel bias ``b`` tiled over ``groups`` offset
+    groups; ``y`` itself for a convolution without a bias."""
+    if b is None:
+        return y
+    return y + _channel_view(b.repeat(groups) if groups > 1 else b, y.ndim)
+
+
 def _glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
                      generator: Optional[torch.Generator]) -> None:
     """flax ``glorot_uniform`` (Xavier uniform, the reference's conv init)."""
@@ -473,7 +482,8 @@ class SpatialConv(nn.Module):
     padding, by the implementation of JAX's ``SpatialConv``.
 
     ``weight`` is ``(out, in, *kernel_size)``; Xavier-uniform init, zero
-    bias; ``strides`` default to 1.
+    bias (none with ``bias=False``, as MONAI's UNETR blocks build their
+    convolutions); ``strides`` default to 1.
 
     ``impl`` (fixed when built): ``"direct"`` — the convolution itself;
     ``"s2d"`` — the space-to-depth rewrite (``ops/s2d.py``), raising where
@@ -509,7 +519,8 @@ class SpatialConv(nn.Module):
                  kernel_size: Sequence[int],
                  strides: Optional[Sequence[int]] = None,
                  generator: Optional[torch.Generator] = None,
-                 dw_impl: str = "xla", impl: str = "direct"):
+                 dw_impl: str = "xla", impl: str = "direct",
+                 bias: bool = True):
         super().__init__()
         if dw_impl not in DW_IMPLS:
             raise ValueError(f"Unknown dw_impl {dw_impl!r}; expected one of "
@@ -530,7 +541,7 @@ class SpatialConv(nn.Module):
         rf = math.prod(self.kernel_size)
         _glorot_uniform_(self.weight, rf * in_features, rf * features,
                          generator)
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def forward(self, x, packed: bool = False, packed_factors=None,
                 packed_input_splits=None, packed_down: bool = False,
@@ -538,15 +549,14 @@ class SpatialConv(nn.Module):
         rank = len(self.kernel_size)
         k = self.kernel_size
         w = self.weight.to(x.dtype)
-        b = self.bias.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
         if packed_down:
             if k != (2,) * rank or self.strides != (2,) * rank:
                 raise ValueError(f"packed_down needs a stride-2 2^r conv, "
                                  f"got kernel {k}, strides {self.strides}")
             y = packed_down_conv(x, w, keep_packed=packed_down_keep,
                                  factors=packed_factors)
-            b = b.repeat(2 ** rank) if packed_down_keep else b
-            return y + _channel_view(b, y.ndim)
+            return _plus_bias(y, b, 2 ** rank if packed_down_keep else 1)
         if packed:
             factors = norm_factors(packed_factors, rank)
             groups = prod_factors(factors)
@@ -562,7 +572,7 @@ class SpatialConv(nn.Module):
                 y = packed_conv(x, w, input_splits=packed_input_splits,
                                 factors=factors, dw_impl=self.dw_impl,
                                 halo=current_partition())
-            return y + _channel_view(b.repeat(groups), y.ndim)
+            return _plus_bias(y, b, groups)
 
         stride1 = self.strides == (1,) * rank
         even = all(n % 2 == 0 for n in x.shape[2:])
@@ -605,7 +615,7 @@ class SpatialConv(nn.Module):
                 x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
                 padding = 0
             return _CONV[rank](x, w, b, self.strides, padding)
-        return y + _channel_view(b, y.ndim)
+        return _plus_bias(y, b)
 
     def _halo_conv(self, x, w, b, part):
         """The stride-1 convolution of a slab of a spatially partitioned
@@ -615,7 +625,7 @@ class SpatialConv(nn.Module):
         xh = halo_exchange_asym(x, (k[sp] - 1) // 2, k[sp] // 2, part, 2 + sp)
         pads = [((kk - 1) // 2, kk // 2) for kk in k]
         pads[sp] = (0, 0)
-        return conv_padded(xh, w, pads) + _channel_view(b, xh.ndim)
+        return _plus_bias(conv_padded(xh, w, pads), b)
 
 
 class SpatialConvTranspose(nn.Module):
@@ -623,7 +633,7 @@ class SpatialConvTranspose(nn.Module):
     V-Net's up-convolution), output ``stride * input``.
 
     ``weight`` is ``(in, out, *kernel_size)`` as ``F.conv_transpose3d``
-    (or ``2d``) takes it. ``lax.conv_transpose`` does not flip the kernel
+    (or ``2d``) takes it; ``bias=False`` builds it without a bias. ``lax.conv_transpose`` does not flip the kernel
     and PyTorch's transpose convolution is the adjoint of a convolution, so
     the JAX kernel maps here spatially flipped (``convert.py``).
 
@@ -636,7 +646,7 @@ class SpatialConvTranspose(nn.Module):
     def __init__(self, in_features: int, features: int,
                  kernel_size: Sequence[int], strides: Sequence[int],
                  generator: Optional[torch.Generator] = None,
-                 impl: str = "direct"):
+                 impl: str = "direct", bias: bool = True):
         super().__init__()
         if impl not in CONV_IMPLS:
             raise ValueError(f"Unknown conv impl {impl!r}; expected one of "
@@ -656,12 +666,12 @@ class SpatialConvTranspose(nn.Module):
         rf = math.prod(self.kernel_size)
         _glorot_uniform_(self.weight, rf * in_features, rf * features,
                          generator)
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def forward(self, x, packed_output: bool = False, packed_factors=None):
         rank = len(self.kernel_size)
         w = self.weight.to(x.dtype)
-        b = self.bias.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
         can_up = self.kernel_size == (2,) * rank
         if packed_output:
             if not can_up:
@@ -669,10 +679,9 @@ class SpatialConvTranspose(nn.Module):
             y = s2d_up_conv(x, w, keep_packed=True,
                             out_factors=packed_factors)
             groups = prod_factors(norm_factors(packed_factors, rank))
-            return y + _channel_view(b.repeat(groups), y.ndim)
+            return _plus_bias(y, b, groups)
         if self.impl != "direct" and can_up:
-            y = s2d_up_conv(x, w)
-            return y + _channel_view(b, y.ndim)
+            return _plus_bias(s2d_up_conv(x, w), b)
         return _CONV_TRANSPOSE[rank](x, w, b, self.strides)
 
 

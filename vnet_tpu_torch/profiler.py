@@ -33,7 +33,15 @@ launched, less those of the spans inside it) that reads each:
   volume's upload, the accumulator, each batch's gather, window weighting,
   flags and blend (``engine_own_ms.eval``);
 * ``vnet.engine.forward``, one engine batch's network forward and softmax
-  (``engine_forward_ms.eval``).
+  (``engine_forward_ms.eval``);
+* ``vnet.swin.encoder``, ``SwinUNETR``'s Swin transformer: the patch
+  embedding, the four stages, their merges and the hidden states' norms;
+* ``vnet.swin.window_attention``, one call of the window attention
+  (``ops/window_attention.py``: the kernels' forward on the card, the
+  plain version elsewhere); its backward runs under ``vnet.train.backward``
+  (``window_attn_ms.train`` reads the kernels by name);
+* ``vnet.unetr.decoder``, ``SwinUNETR``'s CNN encoders, decoders and
+  head.
 """
 
 from __future__ import annotations

@@ -346,11 +346,12 @@ class Trainer:
             dw_impl=net_cfg.dw_impl, spatial_rank=t.dimension,
             patch_shape=t.patch_shape)
         if self.mesh.space > 1:
-            if self.is_attention or name == "Dense":
+            if self.is_attention or name in ("Dense", "SwinUNETR"):
                 raise NotImplementedError(
                     f"Mesh.SpaceParallel={self.mesh.space}: {name} does not "
                     "take a spatial partition (VNet, VNetLegacy and UNet "
-                    "do)")
+                    "do; SwinUNETR's windows and instance norms cross the "
+                    "slabs)")
             validate_partition(t.patch_shape, 0, self.mesh.space,
                                self.network.num_levels,
                                kernel_halo=1 if name == "UNet" else 2)
